@@ -1,0 +1,643 @@
+#!/usr/bin/env python3
+"""Quickest proof that potato_tpu_torch still starts on the GPU.
+
+    python3 chip_smoke.py                 # everything below, one card
+    python3 chip_smoke.py --kernel-only   # phases 1-3, then stop (no verdict)
+    python3 chip_smoke.py --profile       # also trace one chunk per scene
+
+1. needs a CUDA card: exits non-zero at once without one;
+2. builds the CUDA kernel from potato_tpu_torch/csrc with nvcc;
+3. holds the kernel against its plain PyTorch version, and the whole
+   intersector against brute force, on the card, on three inputs;
+4. renders more_balls and a bunny stand-in (the bunny scene with a
+   5 120-triangle icosphere as its mesh) at 800x600, 4 spp, 8 bounces through
+   the entry points a user calls, checks the images, counts the kernel's
+   launches, times whole frames and the share of each phase, and compares a
+   small frame rendered through the kernel with one rendered through the
+   plain version;
+5. prints one JSON line describing every kernel, then a verdict line.
+
+Any failed gate raises, so the run ends non-zero with no verdict line.
+The script imports only the port (torch, numpy): nothing of JAX.
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from potato_tpu_torch.core.types import RayBatch
+from potato_tpu_torch.ops import _build
+from potato_tpu_torch.ops import flash
+from potato_tpu_torch.ops.intersect import intersect_brute_force
+from potato_tpu_torch.render import renderer
+from potato_tpu_torch.render.camera import generate_rays
+from potato_tpu_torch.render.integrator import init_state, make_bounce_step
+from potato_tpu_torch.scene import examples
+from potato_tpu_torch.scene.description import (
+    Emit, Material, MeshData, Scatter, Absorb,
+)
+
+WIDTH, HEIGHT, SPP, BOUNCES = 800, 600, 4, 8
+SEED = 7
+CHUNK = renderer.DEFAULT_CHUNK
+
+# Published peaks of one H100 SXM: float32 outside the tensor cores, and
+# device memory. The bound below is stated against these.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+FLOPS_PER_TRI_PAIR = 50
+FLOPS_PER_SPH_PAIR = 30
+REPLACES = "potato_tpu/ops/flash.py:1031"
+KERNEL_SOURCE = "potato_tpu_torch/csrc/flash_intersect.cu"
+
+
+def say(*parts):
+    print(*parts, flush=True)
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---- timing: CUDA events (replaced by a host clock only in CPU rehearsals)
+
+def event():
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def elapsed_ms(a, b) -> float:
+    return a.elapsed_time(b)
+
+
+def sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def gate(name, reading, ok, limit):
+    say(f"  gate {name}: {reading} (limit {limit}) {'ok' if ok else 'MISSED'}")
+    if not ok:
+        raise SystemExit(f"chip_smoke: gate missed: {name} = {reading}, "
+                         f"limit {limit}")
+
+
+# ------------------------------------------------------------------ scenes
+
+def icosphere(subdivisions=4, radius=0.5, center=(0.0, 0.5, 0.0)) -> MeshData:
+    """A subdivided icosahedron (20 * 4^n triangles) with smooth normals."""
+    p = (1.0 + 5.0 ** 0.5) / 2.0
+    verts = [(-1, p, 0), (1, p, 0), (-1, -p, 0), (1, -p, 0), (0, -1, p),
+             (0, 1, p), (0, -1, -p), (0, 1, -p), (p, 0, -1), (p, 0, 1),
+             (-p, 0, -1), (-p, 0, 1)]
+    verts = [np.asarray(v, np.float64) / np.linalg.norm(v) for v in verts]
+    faces = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+             (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+             (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+             (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
+    for _ in range(subdivisions):
+        mid = {}
+
+        def midpoint(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in mid:
+                m = verts[a] + verts[b]
+                verts.append(m / np.linalg.norm(m))
+                mid[key] = len(verts) - 1
+            return mid[key]
+
+        split = []
+        for a, b, c in faces:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            split += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        faces = split
+    normals = np.asarray(verts, np.float32)
+    uvs = np.stack([0.5 + np.arctan2(normals[:, 2], normals[:, 0])
+                    / (2 * np.pi), 0.5 + np.arcsin(normals[:, 1]) / np.pi],
+                   axis=-1).astype(np.float32)
+    return MeshData(
+        positions=(normals * radius + np.asarray(center, np.float32))
+        .astype(np.float32),
+        normals=normals, uvs=uvs, indices=np.asarray(faces, np.int32))
+
+
+def bunny_standin():
+    """The bunny scene (camera, sky panorama, metal ground, DebugNormals
+    mesh material) with the icosphere in the bunny's place."""
+    return examples._bunny_scene(
+        icosphere(),
+        Material(Scatter.none(), Absorb.black_body(), Emit.debug_normals()))
+
+
+SCENES = {"more_balls": examples.more_balls, "bunny_standin": bunny_standin}
+
+
+# -------------------------------------------- phase 3: kernel vs plain/brute
+
+def camera_rays(scene, chunk_index, width=WIDTH, height=HEIGHT, spp=SPP):
+    ids, live = renderer.chunk_ray_ids(chunk_index * CHUNK, CHUNK, width,
+                                       height, spp, scene.device)
+    rays = generate_rays(scene.camera, width, height, spp, ids, SEED,
+                         lens=scene.features.has_lens)
+    return init_state(rays, live=live).rays
+
+
+def incoherent_rays(scene, n, seed):
+    rng = np.random.default_rng(seed)
+    lo = scene.accel.world_min.cpu().numpy().clip(-2, 2)
+    hi = scene.accel.world_max.cpu().numpy().clip(-2, 2)
+    origin = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+    direction = rng.normal(size=(n, 3)).astype(np.float32)
+    direction /= np.linalg.norm(direction, axis=-1, keepdims=True)
+    dev = scene.device
+    return RayBatch(torch.tensor(origin, device=dev),
+                    torch.tensor(direction, device=dev),
+                    torch.full((n,), 1e-3, device=dev),
+                    torch.full((n,), flash.BIG, device=dev))
+
+
+def run_both(scene, inp):
+    """(kernel outputs, plain outputs, kernel visits, plain visits)."""
+    accel = scene.accel
+    nb = inp.packed_rays.shape[1] // flash.R
+    vk = torch.zeros((nb, 3), dtype=torch.int32, device=scene.device)
+    vp = torch.zeros_like(vk)
+    args = (inp.packed_rays, inp.queues, accel.tri_flat, accel.sph_feats,
+            flash.R, inp.has_sph)
+    got = flash.flash_intersect_kernel(*args, visits=vk)
+    sync(scene.device)          # a fault during the run surfaces here
+    want = flash.flash_intersect_plain(*args, visits=vp)
+    return got, want, vk, vp
+
+
+def winners(raw):
+    """Merged closest hit of a raw (tri_t, tri_slot, sph_t, sph_slot): the
+    triangle result matters only where no sphere precedes it."""
+    tri_t, tri_slot, sph_t, sph_slot = raw
+    sphere = sph_t <= tri_t
+    t = torch.where(sphere, sph_t, tri_t)
+    # spheres numbered after an offset so a slot names one primitive
+    slot = torch.where(sphere, sph_slot.long() + (1 << 30), tri_slot.long())
+    return t, slot, t < flash.BIG
+
+
+def compare_kernel_with_plain(label, scene, rays) -> float:
+    inp = flash.prepare_flash(scene.accel, scene.tables, rays)
+    got, want, vk, vp = run_both(scene, inp)
+    kt, ks, kh = winners(got)
+    pt, ps, ph = winners(want)
+    n = kt.numel()
+    both = kh & ph
+    same = both & (ks == ps)
+    err = (kt - pt).abs()[same]
+    rel = (err / pt[same].abs().clamp(min=1e-30))
+    max_abs = float(err.max()) if err.numel() else 0.0
+    say(f"[kernel vs plain] {label}: {n} rays, {int(ph.sum())} hits, "
+        f"visits kernel {vk.sum(0).tolist()} plain {vp.sum(0).tolist()} "
+        f"(sphere clusters, children, tail parents)")
+    gate("hit/miss agreement", f"{float((kh == ph).float().mean()):.6f}",
+         float((kh == ph).float().mean()) >= 0.999, ">= 0.999")
+    slot_share = float(same.sum() / both.sum()) if bool(both.any()) else 1.0
+    gate("slot agreement where both hit", f"{slot_share:.6f}",
+         slot_share >= 0.999, ">= 0.999")
+    # Same formulas in float32, but nvcc contracts multiply-adds and eager
+    # torch does not. The triangle test's det = U + V + W sums three edge
+    # values that are each 10-100 times larger than det itself (small
+    # triangles seen from afar), so that rounding difference shows at about
+    # 1e-4 of t on a few rays in ten thousand: hence a share at rtol 1e-4
+    # and a cap, for every ray, at the rtol 1e-3 of the brute-force gate.
+    scale = pt[same].abs()
+    share = float((err <= 1e-4 * scale + 1e-6).float().mean()) \
+        if err.numel() else 1.0
+    gate("t within rtol 1e-4 where both hit the same primitive",
+         f"{share:.6f} of rays, max abs {max_abs:.3e}, "
+         f"max rel {float(rel.max()) if rel.numel() else 0.0:.3e}",
+         share >= 0.999, ">= 0.999 of rays")
+    gate("t within rtol 1e-3, every ray", bool((err <= 1e-3 * scale
+                                               + 1e-6).all()),
+         bool((err <= 1e-3 * scale + 1e-6).all()), "True")
+    return max_abs
+
+
+def compare_flash_with_brute(label, scene, rays, step=2048):
+    """The gates of tests/test_flash.py::_assert_same, on the card. At
+    2^15 rays a few graze a primitive, where the kernel's pair tests and
+    the oracle's (other formulas for the same geometry) may name different
+    winners; such a ray differs in material and in t alike, so t is held
+    to the same > 99.5 % share as the material."""
+    out = flash.intersect_flash(scene.accel, scene.tables, rays)
+    parts = []
+    for s in range(0, rays.origin.shape[0], step):
+        cut = RayBatch(*(f[s:s + step] for f in rays))
+        parts.append(intersect_brute_force(scene.tables, cut))
+    brute = type(parts[0])(*(torch.cat(f) for f in zip(*parts)))
+    sync(scene.device)
+    same_valid = out.valid == brute.valid
+    v = brute.valid & same_valid
+    err = (out.t - brute.t).abs()[v]
+    close = err <= 2e-3 + 1e-3 * brute.t[v].abs()
+    same_mat = (out.material == brute.material)[v].float().mean()
+    say(f"[flash vs brute force] {label}: {int(brute.valid.sum())} hits")
+    gate("valid agreement", f"{float(same_valid.float().mean()):.6f}",
+         float(same_valid.float().mean()) > 0.995, "> 0.995")
+    gate("t within rtol 1e-3 atol 2e-3",
+         f"{float(close.float().mean()):.6f} of hits "
+         f"({int((~close).sum())} off, max abs err {float(err.max()):.3e})",
+         float(close.float().mean()) > 0.995, "> 0.995")
+    gate("material agreement", f"{float(same_mat):.6f}",
+         float(same_mat) > 0.995, "> 0.995")
+
+
+def phase_kernel_checks(scenes) -> float:
+    bunny, balls = scenes["bunny_standin"], scenes["more_balls"]
+    mid = (WIDTH * HEIGHT * SPP // CHUNK) // 2
+    inputs = [
+        ("icosphere 5120 tris, coherent camera rays (tile-swizzled)",
+         bunny, camera_rays(bunny, mid)),
+        ("icosphere 5120 tris, incoherent rays",
+         bunny, incoherent_rays(bunny, CHUNK, seed=11)),
+        ("more_balls, camera rays", balls, camera_rays(balls, mid)),
+    ]
+    worst = 0.0
+    for label, scene, rays in inputs:
+        worst = max(worst, compare_kernel_with_plain(label, scene, rays))
+        compare_flash_with_brute(label, scene, rays)
+    return worst
+
+
+# ------------------------------------------------ phase 4: the main path
+
+def check_image(name, out):
+    pixels = WIDTH * HEIGHT
+    assert out.color.shape == (HEIGHT, WIDTH, 3), out.color.shape
+    gate(f"{name}: image finite", bool(np.isfinite(out.color).all()),
+         bool(np.isfinite(out.color).all()), "True")
+    gate(f"{name}: segments", out.segments, out.segments >= pixels * SPP,
+         f">= {pixels * SPP}")
+    gate(f"{name}: first-hit coverage", f"{float(out.coverage.mean()):.4f}",
+         float(out.coverage.mean()) > 0.0, "> 0")
+    gate(f"{name}: mean radiance", f"{float(out.color.mean()):.4f}",
+         0.0 < float(out.color.mean()) < 10.0, "in (0, 10)")
+
+
+def timed_frames(scene, frames=3):
+    """ms per frame and segments per frame over `frames` whole frames."""
+    frame_fn, starts = renderer.compile_frame(
+        scene, WIDTH, HEIGHT, SPP, BOUNCES, driver="chunked")
+    ms, segs = [], []
+    for i in range(frames):
+        a = event()
+        out = frame_fn(scene.tables, scene.camera, SEED + i, starts)
+        b = event()
+        sync(scene.device)
+        ms.append(elapsed_ms(a, b))
+        segs.append(int(out.segments.sum()))
+    return ms, segs
+
+
+def instrumented_frame(scene):
+    """One frame driven chunk by chunk and bounce by bounce through the
+    port's own pieces, with events around each phase. Returns the phase
+    sums (ms), the kernel's visits, the number of intersect calls, and the
+    kernel inputs of the middle chunk's launches."""
+    accel, tables, dev = scene.accel, scene.tables, scene.device
+    marks = []     # (phase, start event, end event)
+    visits = []
+    captured = []
+    state_box = {"capture": False}
+
+    def intersect(tables_, rays):
+        e0 = event()
+        inp = flash.prepare_flash(accel, tables_, rays)
+        e1 = event()
+        nb = inp.packed_rays.shape[1] // flash.R
+        v = torch.zeros((nb, 3), dtype=torch.int32, device=dev)
+        raw = flash.flash_intersect_kernel(
+            inp.packed_rays, inp.queues, accel.tri_flat, accel.sph_feats,
+            flash.R, inp.has_sph, visits=v)
+        e2 = event()
+        hit = flash.flash_epilogue(accel, rays, raw, inp.sph_dense)
+        e3 = event()
+        marks.extend([("queue build", e0, e1), ("kernel", e1, e2),
+                      ("epilogue", e2, e3)])
+        visits.append(v)
+        if state_box["capture"]:
+            captured.append(inp)
+        return hit
+
+    step = make_bounce_step(tables, intersect, SEED,
+                            features=scene.features, aovs=False)
+    total = WIDTH * HEIGHT * SPP
+    num_chunks = (total + CHUNK - 1) // CHUNK
+    calls = 0
+    f0 = event()
+    for c in range(num_chunks):
+        state_box["capture"] = c == num_chunks // 2
+        e0 = event()
+        ids, live = renderer.chunk_ray_ids(c * CHUNK, CHUNK, WIDTH, HEIGHT,
+                                           SPP, dev)
+        rays = generate_rays(scene.camera, WIDTH, HEIGHT, SPP, ids, SEED,
+                             lens=scene.features.has_lens)
+        state = init_state(rays, live=live)
+        e1 = event()
+        marks.append(("camera + rng", e0, e1))
+        bounce = 0
+        while bounce < BOUNCES and bool(state.active.any()):
+            s0 = event()
+            state = step(state, bounce, ids)
+            s1 = event()
+            marks.append(("bounce step", s0, s1))
+            bounce += 1
+            calls += 1
+    f1 = event()
+    sync(dev)
+    sums = {}
+    for phase, a, b in marks:
+        sums[phase] = sums.get(phase, 0.0) + elapsed_ms(a, b)
+    sums["shading"] = sums.pop("bounce step") - sums["queue build"] \
+        - sums["kernel"] - sums["epilogue"]
+    sums["frame"] = elapsed_ms(f0, f1)
+    return sums, torch.cat(visits), calls, captured
+
+
+def kernel_bound_ms(scene, inp, visits) -> dict:
+    """The least time the card could take for this launch: the pair tests
+    this run's queues took over the float32 peak, against every input read
+    once and every output written once over the memory rate."""
+    sph, children, tail = (int(x) for x in visits.sum(0))
+    pairs_tri = flash.R * (children * flash.W + tail * flash.K)
+    pairs_sph = flash.R * sph * flash.K
+    flops = pairs_tri * FLOPS_PER_TRI_PAIR + pairs_sph * FLOPS_PER_SPH_PAIR
+    bp = inp.packed_rays.shape[1]
+    nbytes = inp.packed_rays.numel() * 4 + bp * 16
+    nbytes += sum(t.numel() * t.element_size() for t in inp.queues)
+    nbytes += scene.accel.tri_flat.numel() * 4
+    if inp.has_sph:
+        nbytes += scene.accel.sph_feats.numel() * 4
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return {"ms": max(t_ops, t_bytes), "ops_ms": t_ops, "bytes_ms": t_bytes,
+            "pairs_tri": pairs_tri, "pairs_sph": pairs_sph}
+
+
+def time_captured(scene, captured, reps=20, plain_reps=2):
+    """Kernel, plain version and bound on the main path's own inputs: the
+    launches of one chunk (its camera pass and its bounce passes).
+
+    The kernel is timed twice. `ms` is device time: the launches are queued
+    behind a spinning kernel, so the card never waits for the host between
+    them. `enqueue_ms` is the same loop with the card idle at its start,
+    which for a short kernel measures the wrapper's host cost per call."""
+    accel, dev = scene.accel, scene.device
+    rows = []
+    for inp in captured:
+        nb = inp.packed_rays.shape[1] // flash.R
+        v = torch.zeros((nb, 3), dtype=torch.int32, device=dev)
+        args = (inp.packed_rays, inp.queues, accel.tri_flat, accel.sph_feats,
+                flash.R, inp.has_sph)
+        flash.flash_intersect_kernel(*args, visits=v)       # warm
+        sync(dev)
+        e0 = event()
+        for _ in range(reps):
+            flash.flash_intersect_kernel(*args)
+        e1 = event()
+        sync(dev)
+        torch.cuda._sleep(40_000_000)      # ~20 ms: the host runs ahead
+        a = event()
+        for _ in range(reps):
+            flash.flash_intersect_kernel(*args)
+        b = event()
+        flash.flash_intersect_plain(*args)                  # warm
+        c = event()
+        for _ in range(plain_reps):
+            flash.flash_intersect_plain(*args)
+        d = event()
+        sync(dev)
+        rows.append({"ms": elapsed_ms(a, b) / reps,
+                     "enqueue_ms": elapsed_ms(e0, e1) / reps,
+                     "plain_ms": elapsed_ms(c, d) / plain_reps,
+                     "bound": kernel_bound_ms(scene, inp, v)})
+    return rows
+
+
+def small_frame_agreement(name, scene, size=64, spp=2, gated_bounces=4):
+    """The whole path through the kernel against the whole path through
+    the plain version, under the gate of
+    tests/test_render_oracle.py::_compare (per-pixel 2e-3, at most
+    max(1, 0.2 %) pixels off).
+
+    The gate is taken at 4 bounces, the depth the repository's image tests
+    use it at: the kernel (contracted multiply-adds) and the plain version
+    (none) differ in t by up to ~1e-4 relative, a bounce off a sphere of
+    radius 0.2 magnifies that, and the count of pixels off grows with
+    depth. The reading at full depth is printed beside it, ungated."""
+    def pixels_off(bounces):
+        kw = dict(spp=spp, max_bounce=bounces, seed=SEED, driver="chunked")
+        a = renderer.render(scene, size, size, **kw)
+        b = renderer.render(scene, size, size, force_plain=True, **kw)
+        bad = (np.abs(a.color.astype(np.float64) - b.color) > 2e-3).any(-1)
+        return int(bad.sum()), bad.size
+
+    off, pixels = pixels_off(gated_bounces)
+    allowed = max(1, round(0.002 * pixels))
+    deep, _ = pixels_off(BOUNCES)
+    gate(f"{name}: {size}x{size}x{spp}spp kernel path vs plain path, "
+         f"pixels off by > 2e-3 at {gated_bounces} bounces", off,
+         off <= allowed, f"<= {allowed}; at {BOUNCES} bounces: {deep}")
+
+
+def profile_chunk(name, scene):
+    """torch.profiler over the middle chunk of a frame: the card's busy
+    share and the kernels that take its time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    num_chunks = (WIDTH * HEIGHT * SPP + CHUNK - 1) // CHUNK
+    frame_fn, _ = renderer.compile_frame(
+        scene, WIDTH, HEIGHT, SPP, BOUNCES, driver="chunked")
+    starts = torch.tensor([(num_chunks // 2) * CHUNK], device=scene.device)
+    frame_fn(scene.tables, scene.camera, SEED, starts)      # warm
+    sync(scene.device)
+    t0 = time.perf_counter()
+    frame_fn(scene.tables, scene.camera, SEED, starts)
+    sync(scene.device)
+    wall_ms = (time.perf_counter() - t0) * 1e3     # host clock, profiler off
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        frame_fn(scene.tables, scene.camera, SEED, starts)
+        sync(scene.device)
+    # device-side rows only: an operator's row repeats the time of the
+    # kernels it launched
+    rows = [(e.key, e.count, getattr(e, "self_device_time_total", 0.0))
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
+    busy_ms = sum(r[2] for r in rows) / 1e3
+    say(f"[profile] {name}: one chunk of {CHUNK} rays, {BOUNCES} bounces: "
+        f"wall {wall_ms:.1f} ms with the profiler off, device busy "
+        f"{busy_ms:.2f} ms (traced) = {busy_ms / wall_ms:.4f} of that wall, "
+        f"{sum(r[1] for r in rows)} device kernels")
+    for key, count, us in rows[:12]:
+        say(f"[profile]   {us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
+
+
+def phase_main_path(scenes):
+    """Drives render / compile_frame at full width; returns per-scene
+    results and the launch count of the run."""
+    results = {}
+    flash.flash_intersect_kernel.launches = 0
+    for name, scene in scenes.items():
+        out = renderer.render(scene, WIDTH, HEIGHT, spp=SPP,
+                              max_bounce=BOUNCES, seed=SEED,
+                              driver="chunked")          # also the warm-up
+        check_image(name, out)
+        before = flash.flash_intersect_kernel.launches
+        ms, segs = timed_frames(scene)
+        per_frame = (flash.flash_intersect_kernel.launches - before) / len(ms)
+        results[name] = {"frame_ms": ms, "segments": segs,
+                         "launches_per_frame": per_frame}
+        say(f"[main path] {name}: {WIDTH}x{HEIGHT}, {SPP} spp, {BOUNCES} "
+            f"bounces, chunked driver, chunks of {CHUNK}: "
+            f"ms/frame {[round(x, 2) for x in ms]}, "
+            f"segments/s {[round(s / (m / 1e3)) for s, m in zip(segs, ms)]}, "
+            f"segments/frame {segs}, kernel launches/frame {per_frame}")
+    launches = flash.flash_intersect_kernel.launches
+    num_chunks = (WIDTH * HEIGHT * SPP + CHUNK - 1) // CHUNK
+    gate("kernel launches on the main path", launches,
+         launches >= 4 * num_chunks * len(scenes),
+         f">= {4 * num_chunks * len(scenes)} (one per chunk per frame)")
+
+    for name, scene in scenes.items():
+        before = flash.flash_intersect_kernel.launches
+        sums, visits, calls, captured = instrumented_frame(scene)
+        took = flash.flash_intersect_kernel.launches - before
+        gate(f"{name}: one launch per chunk per bounce taken",
+             f"{took} launches, {calls} bounce steps", took == calls,
+             "equal")
+        frame = sums.pop("frame")
+        shares = {k: round(v / frame, 4) for k, v in sums.items()}
+        shares["host gaps"] = round(1.0 - sum(sums.values()) / frame, 4)
+        say(f"[phases] {name}: instrumented frame {frame:.1f} ms; "
+            f"ms {json.dumps({k: round(v, 2) for k, v in sums.items()})}; "
+            f"share of frame {json.dumps(shares)}; kernel mean "
+            f"{sums['kernel'] / calls:.4f} ms over {calls} launches")
+        rows = time_captured(scene, captured)
+        for i, r in enumerate(rows):
+            say(f"[kernel timing] {name} middle chunk bounce {i}: kernel "
+                f"{r['ms']:.4f} ms on the device ({r['enqueue_ms']:.4f} ms "
+                f"a call when enqueued on an idle card), plain "
+                f"{r['plain_ms']:.2f} ms, bound "
+                f"{r['bound']['ms']:.5f} ms (operations "
+                f"{r['bound']['ops_ms']:.5f}, bytes "
+                f"{r['bound']['bytes_ms']:.5f}; pairs tri "
+                f"{r['bound']['pairs_tri']}, sphere "
+                f"{r['bound']['pairs_sph']})")
+        results[name].update(
+            phases_ms=sums, shares=shares, frame_instrumented_ms=frame,
+            kernel_mean_ms_in_frame=sums["kernel"] / calls,
+            frame_visits=visits.sum(0).tolist(), rows=rows)
+        small_frame_agreement(name, scene)
+    return results, launches
+
+
+# -------------------------------------------------------------------- main
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel-only", action="store_true",
+                    help="build and check the kernel, then stop")
+    ap.add_argument("--profile", action="store_true",
+                    help="also trace one chunk of each scene with "
+                         "torch.profiler (device busy share, top kernels)")
+    opts = ap.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs one CUDA card", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    device = torch.device("cuda")
+    card = gpu_line()
+    say(card)
+    say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"python {sys.version.split()[0]}, device "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+
+    _build.build_library("flash_intersect")
+    info = _build.build_info["flash_intersect"]
+    say(f"[build] {KERNEL_SOURCE} -> {info['path']} in "
+        f"{info['seconds']:.1f} s")
+    for line in info["log"].splitlines():
+        if "registers" in line or "spill" in line or "error" in line:
+            say("[build]", line.strip())
+
+    t0 = time.perf_counter()
+    scenes = {name: make().build(accel="flash", device=device)
+              for name, make in SCENES.items()}
+    say(f"[scenes] built in {time.perf_counter() - t0:.1f} s: " + ", ".join(
+        f"{n}: {s.num_spheres} spheres, {s.num_triangles} triangles"
+        for n, s in scenes.items()))
+
+    max_abs_err = phase_kernel_checks(scenes)
+    if opts.kernel_only:
+        say("kernel-only run: stopped after the kernel checks")
+        return 0
+
+    results, launches = phase_main_path(scenes)
+    if opts.profile:
+        for name, scene in scenes.items():
+            profile_chunk(name, scene)
+
+    rows = [r for res in results.values() for r in res["rows"]]
+    bound_ms = float(np.mean([r["bound"]["ms"] for r in rows]))
+    by_ops = float(np.mean([r["bound"]["ops_ms"] for r in rows])) >= \
+        float(np.mean([r["bound"]["bytes_ms"] for r in rows]))
+    kernels = {"kernels": [{
+        "name": "flash_intersect",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": REPLACES,
+        "launches": launches,
+        "max_abs_err": max_abs_err,
+        "ms": float(np.mean([r["ms"] for r in rows])),
+        "plain_ms": float(np.mean([r["plain_ms"] for r in rows])),
+        "bound_ms": bound_ms,
+        "bound_by": "operations" if by_ops else "bytes",
+        "library_ms": None,
+        "timed_on": "the launches of the middle chunk of one frame of each "
+                    "scene (camera pass and bounce passes), "
+                    f"{CHUNK} rays each",
+        "per_scene": {
+            name: {
+                "launches_per_frame": res["launches_per_frame"],
+                "frame_ms": res["frame_ms"],
+                "segments_per_s": [s / (m / 1e3) for s, m in
+                                   zip(res["segments"], res["frame_ms"])],
+                "kernel_mean_ms_in_frame": res["kernel_mean_ms_in_frame"],
+                "phase_shares": res["shares"],
+                "frame_visits": res["frame_visits"],
+                "ms": [r["ms"] for r in res["rows"]],
+                "enqueue_ms": [r["enqueue_ms"] for r in res["rows"]],
+                "plain_ms": [r["plain_ms"] for r in res["rows"]],
+                "bound_ms": [r["bound"]["ms"] for r in res["rows"]],
+            } for name, res in results.items()},
+    }]}
+    say(f"[done] {time.perf_counter() - t_start:.0f} s in all")
+    say(card)
+    say(json.dumps(kernels))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,246 @@
+"""Render driver: chunked, deterministic full-frame rendering.
+
+The flat (pixel x sample) ray index space is cut into equal chunks, each
+traced to completion in turn. Determinism is total: every ray's randomness
+is a pure function of (seed, ray id), so chunk size and chunk order never
+change the image.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from potato_tpu_torch.core import color as pcolor
+from potato_tpu_torch.core.types import resolve_device
+from potato_tpu_torch.ops.intersect import intersect_brute_force
+from potato_tpu_torch.render.camera import generate_rays
+from potato_tpu_torch.render.integrator import TraceResult, trace_paths
+from potato_tpu_torch.scene.tables import CompiledScene
+
+DEFAULT_CHUNK = 1 << 15   # rays per chunk; a starting value, not yet tuned
+
+
+@dataclass
+class RenderOutput:
+    """Full-frame results."""
+
+    color: np.ndarray      # (H, W, 3) float32 linear radiance (spp-averaged)
+    normal: np.ndarray     # (H, W, 3) first-hit normal AOV
+    coverage: np.ndarray   # (H, W) float32 foreground fraction
+    segments: int = 0      # path segments traced (rays/s numerator)
+
+    def srgb(self) -> np.ndarray:
+        """(H, W, 4) uint8, gamma 1/2.2."""
+        return pcolor.to_srgb_u8(torch.from_numpy(self.color)).numpy()
+
+
+def make_intersect_fn(scene: CompiledScene, force_plain: bool = False):
+    """Pick the acceleration entry point of the scene.
+
+    force_plain runs the flash kernel's plain PyTorch version whatever the
+    device; it exists for comparisons (tests and chip_smoke.py)."""
+    from potato_tpu_torch.ops.flash import FlashAccel, intersect_flash
+
+    accel = scene.accel
+    if isinstance(accel, FlashAccel):
+        return lambda tables, rays: intersect_flash(
+            accel, tables, rays, force_plain=force_plain)
+    return intersect_brute_force
+
+
+TILE_W, TILE_H = 16, 8   # pixels per ray-order tile (x spp rays)
+
+
+def _tiles_apply(width: int, height: int) -> bool:
+    return width % TILE_W == 0 and height % TILE_H == 0
+
+
+def tile_swizzle_ids(lin, width: int, spp: int):
+    """Permute the linear ray order so consecutive ids cover a compact
+    TILE_W x TILE_H pixel tile (x spp samples) instead of a 1-pixel-high
+    scanline strip.
+
+    The flash intersector builds one cluster list per block of consecutive
+    rays; a tile's list is the union over a compact screen patch instead of
+    a width-spanning strip. Pure permutation: each ray's RNG and pixel are
+    functions of the *physical* id, so the image is bit-identical to
+    scanline order after unpermuting.
+    """
+    lin = lin.to(torch.int64)
+    tile = TILE_W * TILE_H * spp
+    t_idx, within = lin // tile, lin % tile
+    pix, sample = within // spp, within % spp
+    tiles_x = width // TILE_W
+    px = (t_idx % tiles_x) * TILE_W + pix % TILE_W
+    py = (t_idx // tiles_x) * TILE_H + pix // TILE_W
+    return (py * width + px) * spp + sample
+
+
+def tile_unswizzle_perm(width: int, height: int, spp: int) -> np.ndarray:
+    """Host-side: physical ray id for each raw (traversal-order) row."""
+    lin = np.arange(width * height * spp, dtype=np.uint64)
+    tile = TILE_W * TILE_H * spp
+    t_idx, within = lin // tile, lin % tile
+    pix, sample = within // spp, within % spp
+    tiles_x = width // TILE_W
+    px = (t_idx % tiles_x) * TILE_W + pix % TILE_W
+    py = (t_idx // tiles_x) * TILE_H + pix // TILE_W
+    return ((py * width + px) * spp + sample).astype(np.int64)
+
+
+def render_chunk(tables, camera, ray_ids, *, intersect_fn, width, height,
+                 spp, max_bounce, seed, features=None, live=None,
+                 ior_score: bool = False, jitter: bool = True,
+                 aovs: bool = True) -> TraceResult:
+    """Trace one chunk of global ray ids to radiance + AOVs."""
+    rays = generate_rays(
+        camera, width, height, spp, ray_ids, seed, jitter=jitter,
+        lens=features.has_lens if features is not None else True)
+    return trace_paths(tables, intersect_fn, rays, ray_ids, max_bounce, seed,
+                       features=features, live=live,
+                       ior_score=ior_score, aovs=aovs)
+
+
+def chunk_ray_ids(start: int, chunk_size: int, width: int, height: int,
+                  spp: int, device):
+    """(ids, live) of the chunk starting at raw row `start`: the tail
+    chunk's lanes beyond the frame are born dead (live False), so they
+    trace zero segments and the counter counts each frame ray once."""
+    total = width * height * spp
+    raw = torch.arange(chunk_size, dtype=torch.int64, device=device) + start
+    lin = raw % total
+    ids = tile_swizzle_ids(lin, width, spp) if _tiles_apply(width, height) \
+        else lin
+    return ids, raw < total
+
+
+def _build_frame_fn(scene: CompiledScene, width: int, height: int, spp: int,
+                    max_bounce: int, chunk_size: int, jitter: bool = True,
+                    aovs: bool = True, force_plain: bool = False):
+    """frame(tables, camera, seed, starts) -> TraceResult of stacked chunks
+    (num_chunks, chunk_size, ...), all on the scene's device."""
+    intersect_fn = make_intersect_fn(scene, force_plain=force_plain)
+
+    def frame(tables, camera, seed, starts) -> TraceResult:
+        dev = tables.s_center.device
+        chunks = []
+        for start in starts.tolist():
+            ids, live = chunk_ray_ids(start, chunk_size, width, height, spp,
+                                      dev)
+            chunks.append(render_chunk(
+                tables, camera, ids, intersect_fn=intersect_fn, width=width,
+                height=height, spp=spp, max_bounce=max_bounce, seed=seed,
+                features=scene.features, live=live,
+                jitter=jitter, aovs=aovs))
+        return TraceResult(*(torch.stack(field) for field in zip(*chunks)))
+
+    return frame
+
+
+def default_driver(scene: CompiledScene) -> str:
+    """Frame-driver policy: "compact" (bounce-major with live-ray
+    compaction) for scenes whose paths diverge in length (dielectrics keep
+    bouncing while neighbours retire), "chunked" otherwise."""
+    from potato_tpu_torch.scene import description as d
+
+    diverges = d.SCATTER_DIELECTRIC in scene.features.scatter_kinds
+    return "compact" if diverges else "chunked"
+
+
+def _resolve(scene, device, driver, width, height, spp, chunk_size):
+    dev = resolve_device(device)
+    if scene.device.type != dev.type:
+        raise ValueError(
+            f"scene tables live on {scene.device} but device={device!r} "
+            "was requested; build the scene with the same device")
+    if driver is None:
+        driver = default_driver(scene)
+    if driver == "compact":
+        raise NotImplementedError(
+            "driver='compact' is not ported yet (ROADMAP.md queue A, "
+            "'Compacted breadth-first driver'); pass driver='chunked'")
+    if driver != "chunked":
+        raise ValueError(f"unknown driver {driver!r}")
+    total = width * height * spp
+    if chunk_size is None:
+        chunk_size = DEFAULT_CHUNK
+    chunk_size = min(chunk_size, total)
+    return chunk_size, (total + chunk_size - 1) // chunk_size
+
+
+def compile_frame(scene: CompiledScene, width: int, height: int, spp: int = 4,
+                  max_bounce: int = 8, chunk_size: Optional[int] = None,
+                  aovs: bool = False, driver: Optional[str] = None,
+                  device="cuda", force_plain: bool = False):
+    """The device-only frame function, for timing without the host fetch.
+
+    Returns (frame_fn, starts): frame_fn(tables, camera, seed, starts)
+    -> TraceResult of stacked chunks, entirely on the device.
+
+    driver: "chunked" (each chunk runs its bounce loop to completion) or
+    None = per-scene default (`default_driver`); "compact" is not ported.
+    """
+    chunk_size, num_chunks = _resolve(scene, device, driver, width, height,
+                                      spp, chunk_size)
+    frame_fn = _build_frame_fn(scene, width, height, spp, max_bounce,
+                               chunk_size, aovs=aovs, force_plain=force_plain)
+    starts = torch.arange(num_chunks, dtype=torch.int64,
+                          device=scene.device) * chunk_size
+    return frame_fn, starts
+
+
+def render(scene: CompiledScene, width: int, height: int, spp: int = 4,
+           max_bounce: int = 8, seed: int = 0,
+           chunk_size: Optional[int] = None,
+           with_aovs: bool = True,
+           jitter: bool = True,
+           driver: Optional[str] = None,
+           device="cuda", force_plain: bool = False) -> RenderOutput:
+    """Render a full frame (defaults of the full-size workload: 800x600,
+    spp 4, bounce 8, are the caller's to pass).
+
+    with_aovs controls only which buffers are fetched to the host.
+    """
+    chunk_size, num_chunks = _resolve(scene, device, driver, width, height,
+                                      spp, chunk_size)
+    total = width * height * spp
+    frame_fn = _build_frame_fn(scene, width, height, spp, max_bounce,
+                               chunk_size, jitter=jitter, aovs=True,
+                               force_plain=force_plain)
+    starts = torch.arange(num_chunks, dtype=torch.int64,
+                          device=scene.device) * chunk_size
+    out = frame_fn(scene.tables, scene.camera, seed, starts)
+
+    # rows come back in traversal order; under tile swizzle, scatter them
+    # to their physical (pixel, sample) slots before the spp average
+    if _tiles_apply(width, height):
+        perm = torch.from_numpy(
+            tile_unswizzle_perm(width, height, spp)).to(scene.device)
+
+        def unswizzle(rows):
+            flat = torch.empty_like(rows)
+            flat[perm] = rows
+            return flat
+    else:
+        def unswizzle(rows):
+            return rows
+
+    def image(rows, channels):
+        shape = (height, width, spp) + channels
+        return unswizzle(rows[:total]).reshape(shape).mean(dim=2) \
+            .cpu().numpy()
+
+    color = image(out.color.reshape(-1, 3), (3,))
+    segments = int(out.segments.sum())
+    if with_aovs:
+        normal = image(out.aov_normal.reshape(-1, 3), (3,))
+        coverage = image(out.aov_hit.reshape(-1).to(torch.float32), ())
+    else:
+        normal = np.zeros_like(color)
+        coverage = np.zeros(color.shape[:2], np.float32)
+    return RenderOutput(color=color, normal=normal, coverage=coverage,
+                        segments=segments)
