@@ -7,8 +7,10 @@
 
 1. needs a CUDA card: exits non-zero at once without one;
 2. builds the CUDA kernel from potato_tpu_torch/csrc with nvcc;
-3. holds the kernel against its plain PyTorch version, and the whole
-   intersector against brute force, on the card, on three inputs;
+3. holds the kernel against its plain PyTorch version (results and visit
+   counts, at the default termination group and at every measured one),
+   and the whole intersector against brute force, on the card, on three
+   inputs;
 4. renders more_balls and a bunny stand-in (the bunny scene with a
    5 120-triangle icosphere as its mesh) at 800x600, 4 spp, 8 bounces through
    the entry points a user calls, checks the images, counts the kernel's
@@ -23,6 +25,7 @@ The script imports only the port (torch, numpy): nothing of JAX.
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -50,8 +53,19 @@ CHUNK = renderer.DEFAULT_CHUNK
 # device memory. The bound below is stated against these.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-FLOPS_PER_TRI_PAIR = 50
-FLOPS_PER_SPH_PAIR = 30
+# Operations of one pair test as the plain version writes it (one per add,
+# multiply, compare, divide and root). Every pair pays the head; only a
+# pair that can hit (the plain version's `can_hit`) needs the tail.
+#   triangle head: three edge values of 11, det 2, sign test 6, det != 0 1
+#   triangle tail: divide 1, plane term 7, range test 2, minimum 1
+#   sphere head:   d.c 5, half_b 1, c 8, delta 3, delta > 0 1
+#   sphere tail:   root 1, two t 4, range tests 4, minimum 1
+FLOPS_TRI_HEAD, FLOPS_TRI_TAIL = 42, 11
+FLOPS_SPH_HEAD, FLOPS_SPH_TAIL = 18, 10
+# The yardstick the kernel's first design was held to: every pair at the
+# granularity of a whole block, with divide or root and range test each.
+FIRST_FLOPS_PER_TRI_PAIR = 50
+FIRST_FLOPS_PER_SPH_PAIR = 30
 REPLACES = "potato_tpu/ops/flash.py:1031"
 KERNEL_SOURCE = "potato_tpu_torch/csrc/flash_intersect.cu"
 
@@ -165,18 +179,35 @@ def incoherent_rays(scene, n, seed):
                     torch.full((n,), flash.BIG, device=dev))
 
 
-def run_both(scene, inp):
-    """(kernel outputs, plain outputs, kernel visits, plain visits)."""
-    accel = scene.accel
-    nb = inp.packed_rays.shape[1] // flash.R
-    vk = torch.zeros((nb, 3), dtype=torch.int32, device=scene.device)
+def kernel_args(scene, inp, block=flash.R):
+    return (inp.packed_rays, inp.queues, scene.accel.tri_flat,
+            scene.accel.sph_feats, block, inp.has_sph)
+
+
+def new_visits(scene, inp, group):
+    return torch.zeros((inp.packed_rays.shape[1] // group, 3),
+                       dtype=torch.int32, device=scene.device)
+
+
+def run_both(scene, inp, group=None, block=flash.R):
+    """(kernel outputs, plain outputs, kernel visits, plain visits), both
+    versions at the same termination group (default: the wrapper's)."""
+    group = flash.resolve_group(block, group)
+    vk = new_visits(scene, inp, group)
     vp = torch.zeros_like(vk)
-    args = (inp.packed_rays, inp.queues, accel.tri_flat, accel.sph_feats,
-            flash.R, inp.has_sph)
-    got = flash.flash_intersect_kernel(*args, visits=vk)
+    args = kernel_args(scene, inp, block)
+    got = flash.flash_intersect_kernel(*args, visits=vk, group=group)
     sync(scene.device)          # a fault during the run surfaces here
-    want = flash.flash_intersect_plain(*args, visits=vp)
+    want = flash.flash_intersect_plain(*args, visits=vp, group=group)
     return got, want, vk, vp
+
+
+def pairs_tested(visits, group) -> dict:
+    """Pair tests behind per-group visit counts: rays of a group x rows it
+    visited, summed over the groups."""
+    sph, children, tail = (int(x) for x in visits.sum(0))
+    return {"tri": group * (children * flash.W + tail * flash.K),
+            "sph": group * sph * flash.K}
 
 
 def winners(raw):
@@ -190,9 +221,9 @@ def winners(raw):
     return t, slot, t < flash.BIG
 
 
-def compare_kernel_with_plain(label, scene, rays) -> float:
-    inp = flash.prepare_flash(scene.accel, scene.tables, rays)
-    got, want, vk, vp = run_both(scene, inp)
+def compare_kernel_with_plain(label, scene, rays, block=flash.R) -> float:
+    inp = flash.prepare_flash(scene.accel, scene.tables, rays, block)
+    got, want, vk, vp = run_both(scene, inp, block=block)
     kt, ks, kh = winners(got)
     pt, ps, ph = winners(want)
     n = kt.numel()
@@ -201,9 +232,12 @@ def compare_kernel_with_plain(label, scene, rays) -> float:
     err = (kt - pt).abs()[same]
     rel = (err / pt[same].abs().clamp(min=1e-30))
     max_abs = float(err.max()) if err.numel() else 0.0
-    say(f"[kernel vs plain] {label}: {n} rays, {int(ph.sum())} hits, "
-        f"visits kernel {vk.sum(0).tolist()} plain {vp.sum(0).tolist()} "
-        f"(sphere clusters, children, tail parents)")
+    group = flash.resolve_group(block)
+    say(f"[kernel vs plain] {label}: {n} rays, {int(ph.sum())} hits, groups "
+        f"of {group}, visits kernel {vk.sum(0).tolist()} plain "
+        f"{vp.sum(0).tolist()} (sphere clusters, children, tail parents)")
+    gate("visit counts, every group", f"{int((vk != vp).sum())} differ",
+         torch.equal(vk, vp), "0 differ")
     gate("hit/miss agreement", f"{float((kh == ph).float().mean()):.6f}",
          float((kh == ph).float().mean()) >= 0.999, ">= 0.999")
     slot_share = float(same.sum() / both.sum()) if bool(both.any()) else 1.0
@@ -225,6 +259,20 @@ def compare_kernel_with_plain(label, scene, rays) -> float:
     gate("t within rtol 1e-3, every ray", bool((err <= 1e-3 * scale
                                                + 1e-6).all()),
          bool((err <= 1e-3 * scale + 1e-6).all()), "True")
+    # The results do not depend on the termination group, the visits do:
+    # at every measured group (and at 32) that divides the block, the kernel
+    # returns what it returned above, bit for bit, and takes the visits the
+    # plain version takes.
+    for g in (32,) + flash.GROUPS:
+        if block % g:
+            continue
+        got_g, _, vk_g, vp_g = run_both(scene, inp, g, block)
+        same_out = all(torch.equal(a, b) for a, b in zip(got_g, got))
+        gate(f"group {g}: outputs equal to group {group}'s, visits equal "
+             f"to the plain version's",
+             f"{same_out}, {int((vk_g != vp_g).sum())} differ; visits "
+             f"{vk_g.sum(0).tolist()}, pairs {pairs_tested(vk_g, g)}",
+             same_out and torch.equal(vk_g, vp_g), "True, 0 differ")
     return max_abs
 
 
@@ -271,6 +319,11 @@ def phase_kernel_checks(scenes) -> float:
     for label, scene, rays in inputs:
         worst = max(worst, compare_kernel_with_plain(label, scene, rays))
         compare_flash_with_brute(label, scene, rays)
+    # a block that no group of whole warps per slice fills: its CTAs carry
+    # dead lanes, and the batch is padded to a whole number of blocks
+    for label, scene, rays in inputs[1:]:
+        worst = max(worst, compare_kernel_with_plain(
+            label + ", blocks of 96 rays", scene, rays, block=96))
     return worst
 
 
@@ -319,11 +372,9 @@ def instrumented_frame(scene):
         e0 = event()
         inp = flash.prepare_flash(accel, tables_, rays)
         e1 = event()
-        nb = inp.packed_rays.shape[1] // flash.R
-        v = torch.zeros((nb, 3), dtype=torch.int32, device=dev)
-        raw = flash.flash_intersect_kernel(
-            inp.packed_rays, inp.queues, accel.tri_flat, accel.sph_feats,
-            flash.R, inp.has_sph, visits=v)
+        v = new_visits(scene, inp, flash.resolve_group(flash.R))
+        raw = flash.flash_intersect_kernel(*kernel_args(scene, inp),
+                                           visits=v)
         e2 = event()
         hit = flash.flash_epilogue(accel, rays, raw, inp.sph_dense)
         e3 = event()
@@ -369,14 +420,24 @@ def instrumented_frame(scene):
     return sums, torch.cat(visits), calls, captured
 
 
-def kernel_bound_ms(scene, inp, visits) -> dict:
-    """The least time the card could take for this launch: the pair tests
-    this run's queues took over the float32 peak, against every input read
-    once and every output written once over the memory rate."""
-    sph, children, tail = (int(x) for x in visits.sum(0))
-    pairs_tri = flash.R * (children * flash.W + tail * flash.K)
-    pairs_sph = flash.R * sph * flash.K
-    flops = pairs_tri * FLOPS_PER_TRI_PAIR + pairs_sph * FLOPS_PER_SPH_PAIR
+def kernel_bound_ms(scene, inp, visits, can_hit, visits_block) -> dict:
+    """The least time the card could take for this launch: the operations
+    of the pair tests this run's queues need over the float32 peak, against
+    every input read once and every output written once over the memory
+    rate. `visits` and `can_hit` are the plain version's at the kernel's
+    own termination group: every pair it tested pays the head of its test,
+    the pairs that could hit also the tail.
+
+    `first_ms` is the yardstick of the kernel's first design, kept beside it
+    so that readings stay comparable: the pairs at the granularity of a
+    whole block (`visits_block`), each at the full cost of its test."""
+    pairs = pairs_tested(visits, flash.resolve_group(flash.R))
+    hit_sph, hit_tri = (int(x) for x in can_hit.sum(0))
+    flops = (pairs["tri"] * FLOPS_TRI_HEAD + hit_tri * FLOPS_TRI_TAIL
+             + pairs["sph"] * FLOPS_SPH_HEAD + hit_sph * FLOPS_SPH_TAIL)
+    at_block = pairs_tested(visits_block, flash.R)
+    first_flops = (at_block["tri"] * FIRST_FLOPS_PER_TRI_PAIR
+                   + at_block["sph"] * FIRST_FLOPS_PER_SPH_PAIR)
     bp = inp.packed_rays.shape[1]
     nbytes = inp.packed_rays.numel() * 4 + bp * 16
     nbytes += sum(t.numel() * t.element_size() for t in inp.queues)
@@ -386,24 +447,42 @@ def kernel_bound_ms(scene, inp, visits) -> dict:
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return {"ms": max(t_ops, t_bytes), "ops_ms": t_ops, "bytes_ms": t_bytes,
-            "pairs_tri": pairs_tri, "pairs_sph": pairs_sph}
+            "pairs": pairs, "can_hit": {"tri": hit_tri, "sph": hit_sph},
+            "first_ms": max(first_flops / PEAK_F32_FLOPS * 1e3, t_bytes),
+            "pairs_at_block": at_block}
+
+
+def device_ms(launch, reps=20) -> float:
+    """Device time of one `launch()`: `reps` of them queued behind a
+    spinning kernel, so the card never waits for the host between them."""
+    launch()                                   # warm
+    torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)      # ~20 ms: the host runs ahead
+    a = event()
+    for _ in range(reps):
+        launch()
+    b = event()
+    torch.cuda.synchronize()
+    return elapsed_ms(a, b) / reps
 
 
 def time_captured(scene, captured, reps=20, plain_reps=2):
     """Kernel, plain version and bound on the main path's own inputs: the
     launches of one chunk (its camera pass and its bounce passes).
 
-    The kernel is timed twice. `ms` is device time: the launches are queued
-    behind a spinning kernel, so the card never waits for the host between
-    them. `enqueue_ms` is the same loop with the card idle at its start,
-    which for a short kernel measures the wrapper's host cost per call."""
-    accel, dev = scene.accel, scene.device
+    `ms` is the kernel's device time at the wrapper's default group, `by
+    group` the same at every measured group. `enqueue_ms` is the loop with
+    the card idle at its start, which for a short kernel measures the
+    wrapper's host cost per call. The bound is reckoned from the plain
+    version's visits and pairs that can hit at the kernel's group (gated
+    equal to the kernel's own visits here), the first design's yardstick
+    from its visits at group = block."""
+    dev = scene.device
+    group = flash.resolve_group(flash.R)
     rows = []
     for inp in captured:
-        nb = inp.packed_rays.shape[1] // flash.R
-        v = torch.zeros((nb, 3), dtype=torch.int32, device=dev)
-        args = (inp.packed_rays, inp.queues, accel.tri_flat, accel.sph_feats,
-                flash.R, inp.has_sph)
+        args = kernel_args(scene, inp)
+        v = new_visits(scene, inp, group)
         flash.flash_intersect_kernel(*args, visits=v)       # warm
         sync(dev)
         e0 = event()
@@ -411,21 +490,28 @@ def time_captured(scene, captured, reps=20, plain_reps=2):
             flash.flash_intersect_kernel(*args)
         e1 = event()
         sync(dev)
-        torch.cuda._sleep(40_000_000)      # ~20 ms: the host runs ahead
-        a = event()
-        for _ in range(reps):
-            flash.flash_intersect_kernel(*args)
-        b = event()
-        flash.flash_intersect_plain(*args)                  # warm
+        by_group = {g: device_ms(
+            lambda: flash.flash_intersect_kernel(*args, group=g), reps)
+            for g in flash.GROUPS}         # the default group is one of them
+        v_block = new_visits(scene, inp, flash.R)
+        flash.flash_intersect_plain(*args, visits=v_block)  # warm
+        v_plain = torch.zeros_like(v)
+        can_hit = torch.zeros((v.shape[0], 2), dtype=torch.int64, device=dev)
+        flash.flash_intersect_plain(*args, visits=v_plain, group=group,
+                                    can_hit=can_hit)
+        if not torch.equal(v, v_plain):
+            raise SystemExit("chip_smoke: kernel and plain version took "
+                             "different visits on a launch of the main path")
         c = event()
         for _ in range(plain_reps):
             flash.flash_intersect_plain(*args)
         d = event()
         sync(dev)
-        rows.append({"ms": elapsed_ms(a, b) / reps,
+        rows.append({"ms": by_group[group], "ms_by_group": by_group,
                      "enqueue_ms": elapsed_ms(e0, e1) / reps,
                      "plain_ms": elapsed_ms(c, d) / plain_reps,
-                     "bound": kernel_bound_ms(scene, inp, v)})
+                     "bound": kernel_bound_ms(scene, inp, v_plain, can_hit,
+                                              v_block)})
     return rows
 
 
@@ -531,21 +617,41 @@ def phase_main_path(scenes):
             f"{sums['kernel'] / calls:.4f} ms over {calls} launches")
         rows = time_captured(scene, captured)
         for i, r in enumerate(rows):
+            by_group = r["ms_by_group"]
             say(f"[kernel timing] {name} middle chunk bounce {i}: kernel "
-                f"{r['ms']:.4f} ms on the device ({r['enqueue_ms']:.4f} ms "
-                f"a call when enqueued on an idle card), plain "
-                f"{r['plain_ms']:.2f} ms, bound "
+                f"{r['ms']:.4f} ms on the device at group "
+                f"{flash.resolve_group(flash.R)} (enqueue_ms "
+                f"{r['enqueue_ms']:.4f} a call when enqueued on an idle "
+                f"card); by group "
+                f"{json.dumps({g: round(t, 4) for g, t in by_group.items()})}"
+                f"; plain {r['plain_ms']:.2f} ms, bound "
                 f"{r['bound']['ms']:.5f} ms (operations "
                 f"{r['bound']['ops_ms']:.5f}, bytes "
-                f"{r['bound']['bytes_ms']:.5f}; pairs tri "
-                f"{r['bound']['pairs_tri']}, sphere "
-                f"{r['bound']['pairs_sph']})")
+                f"{r['bound']['bytes_ms']:.5f}; pairs tested "
+                f"{json.dumps(r['bound']['pairs'])}, of which can hit "
+                f"{json.dumps(r['bound']['can_hit'])}); first design's "
+                f"yardstick {r['bound']['first_ms']:.5f} ms (pairs at block "
+                f"granularity {json.dumps(r['bound']['pairs_at_block'])})")
         results[name].update(
             phases_ms=sums, shares=shares, frame_instrumented_ms=frame,
             kernel_mean_ms_in_frame=sums["kernel"] / calls,
             frame_visits=visits.sum(0).tolist(), rows=rows)
         small_frame_agreement(name, scene)
     return results, launches
+
+
+def ptxas_summary(log: str) -> dict:
+    """Over the kernels of the build (one per slice count): the most
+    registers and static shared memory, and all spill bytes, from what
+    `nvcc -Xptxas -v` printed."""
+    def numbers(pattern):
+        return [int(x) for x in re.findall(pattern, log)]
+
+    spills = numbers(r"(\d+) bytes spill stores") + \
+        numbers(r"(\d+) bytes spill loads")
+    return {"registers": max(numbers(r"Used (\d+) registers"), default=None),
+            "shared_bytes": max(numbers(r"(\d+) bytes smem"), default=None),
+            "spill_bytes": sum(spills) if spills else None}
 
 
 # -------------------------------------------------------------------- main
@@ -578,6 +684,12 @@ def main(argv=None) -> int:
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             say("[build]", line.strip())
+    ptxas = ptxas_summary(info["log"])
+    rays_per_thread = flash._library().flash_intersect_rays_per_thread()
+    say(f"[build] {rays_per_thread} rays a thread, default group "
+        f"{flash.resolve_group(flash.R)} of blocks of {flash.R}: {ptxas}")
+    gate("ptxas reports no spills", ptxas["spill_bytes"],
+         ptxas["spill_bytes"] == 0, "0 bytes")
 
     t0 = time.perf_counter()
     scenes = {name: make().build(accel="flash", device=device)
@@ -612,6 +724,21 @@ def main(argv=None) -> int:
         "bound_ms": bound_ms,
         "bound_by": "operations" if by_ops else "bytes",
         "library_ms": None,
+        "group": flash.resolve_group(flash.R),
+        "rays_per_thread": rays_per_thread,
+        **ptxas,
+        "ms_by_group": {g: float(np.mean([r["ms_by_group"][g] for r in rows]))
+                        for g in flash.GROUPS},
+        "enqueue_ms": float(np.mean([r["enqueue_ms"] for r in rows])),
+        "pairs_tested": {k: sum(r["bound"]["pairs"][k] for r in rows)
+                         for k in ("tri", "sph")},
+        "pairs_that_can_hit": {k: sum(r["bound"]["can_hit"][k] for r in rows)
+                               for k in ("tri", "sph")},
+        "first_design_bound_ms": float(np.mean([r["bound"]["first_ms"]
+                                                for r in rows])),
+        "pairs_at_block_granularity": {
+            k: sum(r["bound"]["pairs_at_block"][k] for r in rows)
+            for k in ("tri", "sph")},
         "timed_on": "the launches of the middle chunk of one frame of each "
                     "scene (camera pass and bounce passes), "
                     f"{CHUNK} rays each",

@@ -15,12 +15,14 @@ into phases, each done where it is cheap:
    owning children beyond that capacity are visited whole afterwards
    (the tail), where early termination usually skips them.
 
-3. **The kernel** (`csrc/flash_intersect.cu`, one CTA per block, one ray
-   per thread) drains the queues: sphere clusters first, then packed child
+3. **The kernel** (`csrc/flash_intersect.cu`, one CTA per termination
+   group of `group` consecutive rays of a block, a few rays per thread)
+   drains the block's queues: sphere clusters first, then packed child
    visits, then tail parents, keeping each ray's running best in
-   registers. A visit whose entry distance is beyond every live ray's best
-   is skipped, and because queues are sorted by entry, the first skip ends
-   the phase. `flash_intersect_plain` is the same function in tensor ops.
+   registers. A visit whose entry distance is beyond the best of every
+   live ray of the group is skipped, and because queues are sorted by
+   entry, the first skip ends the phase. `flash_intersect_plain` is the
+   same function in tensor ops.
 
 4. **Epilogue** (tensor ops): merge sphere and triangle winners, gather one
    shade row per ray, re-derive barycentrics for the winning triangle only.
@@ -49,8 +51,10 @@ from potato_tpu_torch.core import math as pmath
 from potato_tpu_torch.core.types import BIG, HitBatch, RayBatch
 from potato_tpu_torch.ops.intersect import sphere_hit_t
 
-# Starting values; none has been tuned for the H100 yet.
-R = 512        # rays per block (= threads per CTA; a launch parameter)
+# Starting values; only DEFAULT_GROUP was chosen on the H100 (PERF.md).
+R = 512        # rays per queue block (a launch parameter)
+DEFAULT_GROUP = 64    # rays per CTA of the kernel: the termination group
+GROUPS = (64, 128, 256, 512)   # the groups the card is measured at
 K = 128        # primitives per parent cluster
 W = 16         # primitives per child cluster
 CPP = K // W   # children per parent
@@ -607,8 +611,10 @@ def prepare_flash(accel: FlashAccel, tables, rays: RayBatch,
 
 def _sphere_keys(o, d, t_min, t_max, tile):
     """Sphere pair tests: rays (NB, 1, R) components against tile rows
-    (NB, rows, 1) -> key (NB, rows, R), BIG where there is no hit. Half-b
-    quadratic with two-root select, as ops/intersect.py."""
+    (NB, rows, 1) -> key (NB, rows, R), BIG where there is no hit, and
+    can_hit (NB, rows, R), the pairs whose test needs its root (the ray's
+    line meets a real sphere). Half-b quadratic with two-root select, as
+    ops/intersect.py."""
     ox, oy, oz = o
     dx, dy, dz = d
     cx, cy, cz, cc, ok = (tile[:, :, i:i + 1] for i in range(5))
@@ -628,7 +634,7 @@ def _sphere_keys(o, d, t_min, t_max, tile):
     t1_ok = (tt1 >= t_min) & (tt1 <= t_max)
     st = torch.where(t0_ok, tt0, tt1)
     valid = sph_ok & (t0_ok | t1_ok)
-    return torch.where(valid, st, st.new_full((), BIG))
+    return torch.where(valid, st, st.new_full((), BIG)), sph_ok
 
 
 def _triangle_keys(o, d, m, t_min, t_max, tile):
@@ -638,7 +644,8 @@ def _triangle_keys(o, d, m, t_min, t_max, tile):
     negated (PxQ, P-Q) features for their shared edge, so their U values
     are exact negations: a ray crossing the shared edge is accepted by at
     least one of them. rays (NB, 1, R) against tile (NB, rows, F_ROWS) ->
-    key (NB, rows, R)."""
+    key (NB, rows, R), and can_hit (NB, rows, R), the pairs whose test needs
+    its divide (the ray's line crosses the triangle and det != 0)."""
     ox, oy, oz = o
     dx, dy, dz = d
     mx, my, mz = m
@@ -659,25 +666,52 @@ def _triangle_keys(o, d, m, t_min, t_max, tile):
     # det = U+V+W = -d.n in real arithmetic
     o_n = ox * f[18] + oy * f[19] + oz * f[20]
     tt = (o_n - f[21]) * inv_det
-    valid = det_ok & same_sign & (tt >= t_min) & (tt <= t_max)
-    return torch.where(valid, tt, tt.new_full((), BIG))
+    can_hit = det_ok & same_sign
+    valid = can_hit & (tt >= t_min) & (tt <= t_max)
+    return torch.where(valid, tt, tt.new_full((), BIG)), can_hit
+
+
+def resolve_group(block: int = R, group: Optional[int] = None) -> int:
+    """The termination group a launch uses: `group` if given (it must divide
+    `block` and be a multiple of 32), else DEFAULT_GROUP where that divides
+    `block`, else the whole block."""
+    if group is None:
+        return DEFAULT_GROUP if block % DEFAULT_GROUP == 0 else block
+    if group <= 0 or group % 32 or block % group:
+        raise ValueError(f"group must be a multiple of 32 that divides "
+                         f"block = {block}, got {group}")
+    return group
 
 
 def flash_intersect_plain(packed_rays, queues: BlockQueues, tri_flat,
                           sph_feats, block: int = R, has_sph: bool = False,
-                          visits: Optional[torch.Tensor] = None):
+                          visits: Optional[torch.Tensor] = None,
+                          group: Optional[int] = None,
+                          can_hit: Optional[torch.Tensor] = None):
     """The kernel's function in plain tensor ops: same queues in, same four
     outputs out. Visits follow the queue order over (blocks, rows, rays)
     tiles; each ray keeps a strict `<` running minimum, so the first
     primitive visited that attains the minimum wins, as in the kernel.
 
+    `group` (default: the whole block) is the termination group: every
+    `group` consecutive rays of a block walk the block's queues on their
+    own and stop at the first visit whose entry is not below the farthest
+    bound among them. An entry is a lower bound for every ray of the block,
+    so the results do not depend on `group`; the visits taken do.
+
     Returns (tri_t f32, tri_slot i32, sph_t f32, sph_slot i32), each (Bp,).
-    `visits` (NB, 3) int32, if given, receives per block the sphere
+    `visits` (Bp // group, 3) int32, if given, receives per group the sphere
     clusters, the non-sentinel children and the tail parents visited.
+    `can_hit` (Bp // group, 2) int64, if given, receives per group how many
+    of the sphere pairs and of the triangle pairs it tested could hit, i.e.
+    needed the root or the divide and the range test beyond the part every
+    pair pays (chip_smoke.py reckons the kernel's bound from it).
     """
     q = queues
     bp = packed_rays.shape[1]
     nb = bp // block
+    group = block if group is None else resolve_group(block, group)
+    ng = block // group                               # groups per block
     dev = packed_rays.device
     rows = packed_rays.reshape(RAY_COLS, nb, 1, block)
     o = (rows[0], rows[1], rows[2])
@@ -692,31 +726,44 @@ def flash_intersect_plain(packed_rays, queues: BlockQueues, tri_flat,
         return (torch.full((nb, block), BIG, dtype=torch.float32, device=dev),
                 torch.zeros((nb, block), dtype=torch.int64, device=dev))
 
-    def take(best_t, best_slot, key, slot_of_row, go):
+    def far_of(bound):
+        """(NB, R) per-ray bounds -> (NB, NG): the farthest of each group."""
+        return bound.reshape(nb, ng, group).amax(dim=2)
+
+    count = torch.zeros((nb, ng, 3), dtype=torch.int64, device=dev)
+    hits = torch.zeros((nb, ng, 2), dtype=torch.int64, device=dev)
+
+    def take(best_t, best_slot, keys, slot_of_row, go, kind):
         """Fold one visit's keys (NB, rows, R) into the running best of the
-        blocks where `go` (NB,) holds."""
+        groups where `go` (NB, NG) holds."""
+        key, passed = keys
+        if can_hit is not None:
+            hits[:, :, kind] += go * passed.sum(dim=1).reshape(
+                nb, ng, group).sum(dim=2)
         kmin, krow = key.min(dim=1)                   # first minimal row
-        better = go[:, None] & (kmin < best_t)
+        better = go.repeat_interleave(group, dim=1) & (kmin < best_t)
         slot = torch.gather(slot_of_row.expand(nb, -1), 1, krow)
         return (torch.where(better, kmin, best_t),
                 torch.where(better, slot, best_slot))
 
-    count = torch.zeros((nb, 3), dtype=torch.int64, device=dev)
+    def all_go():
+        return torch.ones((nb, ng), dtype=torch.bool, device=dev)
 
     # ---- sphere phase (first: its result bounds the triangle phases) ----
     sph_t, sph_slot = fresh()
     if has_sph:
         tiles = sph_feats.reshape(-1, K, SPH_FEATURES)
         lane = torch.arange(K, device=dev)[None, :]
-        go = torch.ones((nb,), dtype=torch.bool, device=dev)
+        go = all_go()
         for j in range(int(q.n_sph.max()) if nb else 0):
-            far = torch.minimum(sph_t, tmax_r).amax(dim=1)
-            go = go & (j < q.n_sph) & (q.sph_entry[:, j] < far)
+            far = far_of(torch.minimum(sph_t, tmax_r))
+            go = go & (j < q.n_sph)[:, None] \
+                & (q.sph_entry[:, j, None] < far)
             ci = q.sph_ids[:, j].long()
             key = _sphere_keys(o, d, t_min, t_max, tiles[ci])
             sph_t, sph_slot = take(sph_t, sph_slot, key,
-                                   ci[:, None] * K + lane, go)
-            count[:, 0] += go
+                                   ci[:, None] * K + lane, go, 0)
+            count[:, :, 0] += go
 
     # ---- triangle phases ----
     tri_t, tri_slot = fresh()
@@ -725,31 +772,33 @@ def flash_intersect_plain(packed_rays, queues: BlockQueues, tri_flat,
     parents = tri_flat[:nsub * W].reshape(-1, K, F_ROWS)
 
     def tri_far():
-        return torch.minimum(torch.minimum(tri_t, tmax_r),
-                             sph_t).amax(dim=1)
+        return far_of(torch.minimum(torch.minimum(tri_t, tmax_r), sph_t))
 
-    go = torch.ones((nb,), dtype=torch.bool, device=dev)
+    go = all_go()
     for j in range(q.pk_entry.shape[1]):
-        go = go & (j < q.n_pk) & (q.pk_entry[:, j] < tri_far())
+        go = go & (j < q.n_pk)[:, None] & (q.pk_entry[:, j, None] < tri_far())
         ci = q.child_ids[:, j * CPP:(j + 1) * CPP].long()     # (NB, CPP)
         tile = children[ci].reshape(nb, K, F_ROWS)
         key = _triangle_keys(o, d, m, t_min, t_max, tile)
         tri_t, tri_slot = take(tri_t, tri_slot, key,
-                               tile[:, :, SLOT_ROW].long(), go)
-        count[:, 1] += go * (ci != nsub).sum(dim=1)
+                               tile[:, :, SLOT_ROW].long(), go, 1)
+        count[:, :, 1] += go * (ci != nsub).sum(dim=1)[:, None]
 
-    go = torch.ones((nb,), dtype=torch.bool, device=dev)
+    go = all_go()
     n_tail_max = int(q.n_tail.max()) if (nb and q.tail_ids.shape[1]) else 0
     for j in range(n_tail_max):
-        go = go & (j < q.n_tail) & (q.tail_entry[:, j] < tri_far())
+        go = go & (j < q.n_tail)[:, None] \
+            & (q.tail_entry[:, j, None] < tri_far())
         tile = parents[q.tail_ids[:, j].long()]
         key = _triangle_keys(o, d, m, t_min, t_max, tile)
         tri_t, tri_slot = take(tri_t, tri_slot, key,
-                               tile[:, :, SLOT_ROW].long(), go)
-        count[:, 2] += go
+                               tile[:, :, SLOT_ROW].long(), go, 1)
+        count[:, :, 2] += go
 
     if visits is not None:
-        visits.copy_(count)
+        visits.copy_(count.reshape(nb * ng, 3))
+    if can_hit is not None:
+        can_hit.copy_(hits.reshape(nb * ng, 2))
     return (tri_t.reshape(bp), tri_slot.reshape(bp).to(torch.int32),
             sph_t.reshape(bp), sph_slot.reshape(bp).to(torch.int32))
 
@@ -765,8 +814,10 @@ def _library():
 
         lib = load_library("flash_intersect")
         p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_intersect_rays_per_thread.argtypes = []
+        lib.flash_intersect_rays_per_thread.restype = i
         lib.flash_intersect_launch.argtypes = [
-            p, i, i, i,            # rays, Bp, nb, threads per block
+            p, i, i, i,            # rays, Bp, block, group
             p, p, p,               # n_pk, n_tail, n_sph
             p, p, i,               # child_ids, pk_entry, v_cap
             p, p, i,               # tail_ids, tail_entry, tail_cap
@@ -793,20 +844,25 @@ def _check(t, name, dtype, shape, device):
 
 def flash_intersect_kernel(packed_rays, queues: BlockQueues, tri_flat,
                            sph_feats, block: int = R, has_sph: bool = False,
-                           visits: Optional[torch.Tensor] = None):
+                           visits: Optional[torch.Tensor] = None,
+                           group: Optional[int] = None):
     """Closest triangle and closest kernel-sphere per ray over the block
     queues: (tri_t f32, tri_slot i32, sph_t f32, sph_slot i32), each (Bp,),
     t = BIG and slot 0 where nothing was hit.
 
     CUDA tensors launch the hand-written kernel (`flash_intersect_kernel
     .launches` counts the launches) or raise; CPU tensors take
-    `flash_intersect_plain`. `visits` (NB, 3) int32 optionally receives the
-    visits taken per block (sphere clusters, children, tail parents).
+    `flash_intersect_plain`. `group` is the termination group, the rays one
+    CTA takes (see `resolve_group`; the results do not depend on it).
+    `visits` (Bp // group, 3) int32 optionally receives the visits taken per
+    group (sphere clusters, children, tail parents).
     """
     dev = packed_rays.device
+    group = resolve_group(block, group)
     if dev.type == "cpu":
         return flash_intersect_plain(packed_rays, queues, tri_flat,
-                                     sph_feats, block, has_sph, visits)
+                                     sph_feats, block, has_sph, visits,
+                                     group)
     if dev.type != "cuda":
         raise ValueError(f"flash_intersect_kernel: unsupported device {dev}")
     if block % 32 or not 32 <= block <= 1024:
@@ -839,8 +895,11 @@ def flash_intersect_kernel(packed_rays, queues: BlockQueues, tri_flat,
            (sph_feats.shape[0], SPH_FEATURES), dev)
     if has_sph and cs > sph_feats.shape[0] // K:
         raise ValueError("sphere queue wider than the sphere table")
+    for name, t in (("tri_flat", tri_flat), ("sph_feats", sph_feats)):
+        if t.data_ptr() % 16:      # the kernel's bulk copies need it
+            raise ValueError(f"{name}: expected 16-byte aligned storage")
     if visits is not None:
-        _check(visits, "visits", i32, (nb, 3), dev)
+        _check(visits, "visits", i32, (bp // group, 3), dev)
     nsub = (tri_flat.shape[0] - W) // W
 
     tri_t = torch.empty((bp,), dtype=f32, device=dev)
@@ -853,7 +912,7 @@ def flash_intersect_kernel(packed_rays, queues: BlockQueues, tri_flat,
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.flash_intersect_launch(
-            packed_rays.data_ptr(), bp, nb, block,
+            packed_rays.data_ptr(), bp, block, group,
             q.n_pk.data_ptr(), q.n_tail.data_ptr(), q.n_sph.data_ptr(),
             q.child_ids.data_ptr(), q.pk_entry.data_ptr(), v_cap,
             q.tail_ids.data_ptr(), q.tail_entry.data_ptr(), tail_cap,
@@ -963,9 +1022,10 @@ def intersect_flash(accel: FlashAccel, tables, rays: RayBatch,
 
     force_plain runs `flash_intersect_plain` in place of the kernel
     whatever the device; it exists for comparisons (tests, chip_smoke.py).
+    Both walk the queues in the same termination groups.
     """
     inp = prepare_flash(accel, tables, rays, block)
     fn = flash_intersect_plain if force_plain else flash_intersect_kernel
     raw = fn(inp.packed_rays, inp.queues, accel.tri_flat, accel.sph_feats,
-             block, inp.has_sph)
+             block, inp.has_sph, group=resolve_group(block))
     return flash_epilogue(accel, rays, raw, inp.sph_dense)

@@ -284,42 +284,61 @@ def test_wrapper_takes_the_plain_version_for_cpu_tensors_only():
     assert tflash.flash_intersect_kernel.launches == before
 
 
+def _wall_scene():
+    """2000 scattered triangles and, in front of them as seen from
+    x = -30, a wall of two large ones at x = -6 (built by the port's own
+    SceneBuilder, on the CPU)."""
+    if "wall" not in _cache:
+        from potato_tpu_torch.scene import description as td
+
+        rng = np.random.default_rng(21)
+        n = 2000
+        base = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
+        e1 = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+        e2 = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+        wall = np.asarray([[-6, -3, -3], [-6, 3, -3], [-6, 3, 3], [-6, -3, 3]],
+                          np.float32)
+        idx = np.arange(n, dtype=np.int32)
+        indices = np.concatenate([
+            np.stack([idx, idx + n, idx + 2 * n], axis=1),
+            np.asarray([[3 * n, 3 * n + 1, 3 * n + 2],
+                        [3 * n, 3 * n + 2, 3 * n + 3]], np.int32)])
+        positions = np.concatenate([base, base + e1, base + e2, wall])
+        s = td.SceneBuilder()
+        s.add_material(td.Material())
+        s.add_mesh(td.MeshData(
+            positions=positions, normals=np.ones_like(positions),
+            uvs=np.zeros((positions.shape[0], 2), np.float32),
+            indices=indices), 0)
+        _cache["wall"] = s.build(accel="flash", device="cpu")
+    return _cache["wall"]
+
+
+def _wall_rays(b=1024, stray_from=None):
+    """A coherent bundle from x = -30 that all lands on the wall. With
+    `stray_from`, the rays of every block from that index on keep their
+    origin and fly at random instead, so some of them hit nothing."""
+    rng = np.random.default_rng(22)
+    origin = np.tile(np.asarray([[-30.0, 0.0, 0.0]], np.float32), (b, 1))
+    target = np.concatenate(
+        [np.zeros((b, 1)), rng.uniform(-0.5, 0.5, (b, 2))], axis=1)
+    direction = (target - origin).astype(np.float32)
+    if stray_from is not None:
+        stray = (np.arange(b) % R) >= stray_from
+        direction[stray] = rng.normal(size=(int(stray.sum()), 3))
+    direction /= np.linalg.norm(direction, axis=-1, keepdims=True)
+    return RayBatch(torch.from_numpy(origin),
+                    torch.from_numpy(direction.astype(np.float32)),
+                    torch.full((b,), RAY_EPSILON), torch.full((b,), BIG))
+
+
 def test_early_termination_changes_work_not_result():
     """A coherent bundle that all lands on a near wall: the front-to-back
     walk stops once every ray's best precedes the next entry. Visiting
     every queued cluster instead (entries forced to 0, so nothing is ever
     skipped) gives the same hits and takes more visits."""
-    from potato_tpu_torch.scene import description as td
-
-    rng = np.random.default_rng(21)
-    n = 2000
-    base = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
-    e1 = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
-    e2 = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
-    wall = np.asarray([[-6, -3, -3], [-6, 3, -3], [-6, 3, 3], [-6, -3, 3]],
-                      np.float32)
-    idx = np.arange(n, dtype=np.int32)
-    indices = np.concatenate([
-        np.stack([idx, idx + n, idx + 2 * n], axis=1),
-        np.asarray([[3 * n, 3 * n + 1, 3 * n + 2],
-                    [3 * n, 3 * n + 2, 3 * n + 3]], np.int32)])
-    positions = np.concatenate([base, base + e1, base + e2, wall])
-    s = td.SceneBuilder()
-    s.add_material(td.Material())
-    s.add_mesh(td.MeshData(positions=positions,
-                           normals=np.ones_like(positions),
-                           uvs=np.zeros((positions.shape[0], 2), np.float32),
-                           indices=indices), 0)
-    ts = s.build(accel="flash", device="cpu")
-
-    b = 1024
-    origin = np.tile(np.asarray([[-30.0, 0.0, 0.0]], np.float32), (b, 1))
-    target = np.concatenate(
-        [np.zeros((b, 1)), rng.uniform(-0.5, 0.5, (b, 2))], axis=1)
-    direction = (target - origin).astype(np.float32)
-    direction /= np.linalg.norm(direction, axis=-1, keepdims=True)
-    trays = RayBatch(torch.from_numpy(origin), torch.from_numpy(direction),
-                     torch.full((b,), RAY_EPSILON), torch.full((b,), BIG))
+    ts = _wall_scene()
+    trays = _wall_rays()
 
     inp = tflash.prepare_flash(ts.accel, ts.tables, trays)
     nb = inp.packed_rays.shape[1] // R
@@ -342,3 +361,122 @@ def test_early_termination_changes_work_not_result():
     assert int(q.n_tail.min()) > 0
     assert torch.equal(v_all[:, 2], q.n_tail)
     assert int(v_early[:, 2].sum()) < int(v_all[:, 2].sum())
+
+
+# ------------------------------------------------- termination groups
+
+_GROUPS = tflash.GROUPS            # (64, 128, 256, 512)
+# the file's scenes under their random rays, and the wall under a bundle of
+# which the second half of every block strays (so a block's far bound is
+# BIG while that of its first groups is the wall's distance)
+_GROUP_CASES = sorted(_SCENES) + ["wall_half_stray"]
+_ROWS = torch.tensor([tflash.K, tflash.W, tflash.K])   # rows of one visit
+
+
+def _plain_at(case, group):
+    """(kernel inputs, the plain version's four outputs, its visits
+    (Bp // group, 3)) for one case at one termination group."""
+    key = ("plain", case, group)
+    if key not in _cache:
+        if case == "wall_half_stray":
+            ts, trays = _wall_scene(), _wall_rays(stray_from=R // 2)
+        else:
+            _, ts, _, trays = _scene(case)
+        inp = tflash.prepare_flash(ts.accel, ts.tables, trays)
+        v = torch.zeros((inp.packed_rays.shape[1] // group, 3),
+                        dtype=torch.int32)
+        out = tflash.flash_intersect_plain(
+            inp.packed_rays, inp.queues, ts.accel.tri_flat,
+            ts.accel.sph_feats, R, inp.has_sph, visits=v, group=group)
+        _cache[key] = (ts, inp, out, v)
+    return _cache[key]
+
+
+def _pairs_tested(visits, group):
+    return int(group * (visits.long() * _ROWS).sum())
+
+
+@pytest.mark.parametrize("group", _GROUPS)
+@pytest.mark.parametrize("case", _GROUP_CASES)
+def test_termination_group_changes_work_not_result(case, group):
+    """An entry distance bounds every ray of the block from below, so a
+    group that stops earlier than its block loses nothing: all four outputs
+    are bit-equal to those at group = block, and no group takes more visits
+    than its block does."""
+    _, _, want, v_block = _plain_at(case, R)
+    _, _, got, v_group = _plain_at(case, group)
+    for name, a, b in zip(("tri_t", "tri_slot", "sph_t", "sph_slot"),
+                          got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    per_block = v_group.reshape(v_block.shape[0], R // group, 3)
+    assert bool((per_block <= v_block[:, None]).all())
+    if group == R:
+        assert torch.equal(v_group, v_block)
+
+
+@pytest.mark.parametrize("case", _GROUP_CASES)
+def test_pairs_tested_do_not_rise_as_the_group_shrinks(case):
+    """Pairs tested = rays of a group x rows it visited, summed."""
+    pairs = [_pairs_tested(_plain_at(case, g)[3], g)
+             for g in sorted(_GROUPS, reverse=True)]
+    if case != "spheres12":     # its spheres all take the dense path
+        assert pairs[0] > 0
+    assert all(a >= b for a, b in zip(pairs, pairs[1:])), pairs
+    if case == "wall_half_stray":
+        assert pairs[1] < pairs[0], pairs   # 256 splits walled from stray
+
+
+@pytest.mark.parametrize("group", [0, -64, 48, 96, 384, 1024])
+def test_wrapper_refuses_a_group_that_does_not_fit(group):
+    """A group divides the block and is a multiple of 32."""
+    ts, inp, _, _ = _plain_at("mixed", R)
+    with pytest.raises(ValueError, match="group"):
+        tflash.flash_intersect_kernel(
+            inp.packed_rays, inp.queues, ts.accel.tri_flat,
+            ts.accel.sph_feats, R, inp.has_sph, group=group)
+
+
+def test_default_group_divides_the_block():
+    assert tflash.resolve_group(R) == tflash.DEFAULT_GROUP
+    assert tflash.DEFAULT_GROUP in _GROUPS and R % tflash.DEFAULT_GROUP == 0
+    assert tflash.resolve_group(96) == 96       # no default fits: the block
+    assert tflash.resolve_group(R, 64) == 64
+
+
+@pytest.mark.parametrize("group", _GROUPS)
+def test_wrapper_passes_the_group_to_the_plain_version_on_cpu(group):
+    ts, inp, want, v_want = _plain_at("wall_half_stray", group)
+    before = tflash.flash_intersect_kernel.launches
+    v = torch.zeros_like(v_want)
+    got = tflash.flash_intersect_kernel(
+        inp.packed_rays, inp.queues, ts.accel.tri_flat, ts.accel.sph_feats,
+        R, inp.has_sph, visits=v, group=group)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert torch.equal(v, v_want)
+    assert tflash.flash_intersect_kernel.launches == before
+
+
+@pytest.mark.parametrize("case", _GROUP_CASES)
+def test_pairs_that_can_hit_are_counted_per_group(case):
+    """`can_hit` counts, per group, the tested pairs that needed more than
+    the part every pair pays: no more than the pairs tested of their kind,
+    at least one for every ray that hit, and asking for the count changes
+    no output."""
+    group = tflash.DEFAULT_GROUP
+    ts, inp, want, v = _plain_at(case, group)
+    hits = torch.zeros((v.shape[0], 2), dtype=torch.int64)
+    got = tflash.flash_intersect_plain(
+        inp.packed_rays, inp.queues, ts.accel.tri_flat, ts.accel.sph_feats,
+        R, inp.has_sph, group=group, can_hit=hits)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    tested_sph = group * v[:, 0].long() * tflash.K
+    tested_tri = group * (v[:, 1].long() * tflash.W
+                          + v[:, 2].long() * tflash.K)
+    assert bool((hits >= 0).all())
+    assert bool((hits[:, 0] <= tested_sph).all())
+    assert bool((hits[:, 1] <= tested_tri).all())
+    tri_t, _, sph_t, _ = (x.reshape(-1, group) for x in got)
+    assert bool((hits[:, 0] >= (sph_t < BIG).sum(dim=1)).all())
+    assert bool((hits[:, 1] >= (tri_t < BIG).sum(dim=1)).all())
+    if case == "wall_half_stray":
+        assert int(hits[:, 1].sum()) < int(tested_tri.sum())
