@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # everything below, one card
     python3 chip_smoke.py --kernel-only   # phases 1-3, then stop (no verdict)
     python3 chip_smoke.py --profile       # also trace one chunk per scene
+                                          # after phase 4
 
 1. needs a CUDA card: exits non-zero at once without one;
 2. builds the CUDA kernel from potato_tpu_torch/csrc with nvcc;
@@ -12,28 +13,43 @@
    and the whole intersector against brute force, on the card, on three
    inputs;
 4. renders more_balls and a bunny stand-in (the bunny scene with a
-   5 120-triangle icosphere as its mesh) at 800x600, 4 spp, 8 bounces through
-   the entry points a user calls, checks the images, counts the kernel's
-   launches, times whole frames and the share of each phase, and compares a
-   small frame rendered through the kernel with one rendered through the
-   plain version;
-5. prints one JSON line describing every kernel, then a verdict line.
+   5 120-triangle icosphere as its mesh, written as bunny.obj and read back
+   by the OBJ loader) at 800x600, 4 spp, 8 bounces through the entry points
+   a user calls with the chunked driver, checks the images, counts the
+   kernel's launches, times whole frames and the share of each phase, and
+   compares a small frame rendered through the kernel with one rendered
+   through the plain version;
+5. renders more_balls, a glass stand-in (glass_bunny with the icosphere as
+   bunny_flat.obj) and the bunny stand-in through render() with each
+   scene's default driver, holds the compact image against the chunked one
+   bit for bit, times both drivers in turns (ms, segments/s, launches and
+   host syncs a frame, passes a bounce), runs the CLI in-process (render to
+   a TGA file held against srgb(), bench, --metrics) and resumes a cut
+   checkpoint, counting the kernel's launches on its own;
+6. prints one JSON line describing every kernel, then a verdict line.
 
 Any failed gate raises, so the run ends non-zero with no verdict line.
 The script imports only the port (torch, numpy): nothing of JAX.
 """
 
 import argparse
+import contextlib
+import io
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
 
+from potato_tpu_torch import cli
 from potato_tpu_torch.core.types import RayBatch
+from potato_tpu_torch.io import obj, tga
 from potato_tpu_torch.ops import _build
 from potato_tpu_torch.ops import flash
 from potato_tpu_torch.ops.intersect import intersect_brute_force
@@ -41,9 +57,8 @@ from potato_tpu_torch.render import renderer
 from potato_tpu_torch.render.camera import generate_rays
 from potato_tpu_torch.render.integrator import init_state, make_bounce_step
 from potato_tpu_torch.scene import examples
-from potato_tpu_torch.scene.description import (
-    Emit, Material, MeshData, Scatter, Absorb,
-)
+from potato_tpu_torch.scene.description import MeshData
+from potato_tpu_torch.utils import metrics as metrics_mod
 
 WIDTH, HEIGHT, SPP, BOUNCES = 800, 600, 4, 8
 SEED = 7
@@ -144,15 +159,39 @@ def icosphere(subdivisions=4, radius=0.5, center=(0.0, 0.5, 0.0)) -> MeshData:
         normals=normals, uvs=uvs, indices=np.asarray(faces, np.int32))
 
 
-def bunny_standin():
-    """The bunny scene (camera, sky panorama, metal ground, DebugNormals
-    mesh material) with the icosphere in the bunny's place."""
-    return examples._bunny_scene(
-        icosphere(),
-        Material(Scatter.none(), Absorb.black_body(), Emit.debug_normals()))
+def write_standin_assets(directory) -> MeshData:
+    """The icosphere as `v//vn` OBJ files named as the bunny scenes' meshes
+    (bunny.obj, bunny_flat.obj) in `directory`, every float written so that
+    it reads back exactly. Returns the icosphere."""
+    mesh = icosphere()
+    lines = [f"v {x:.9g} {y:.9g} {z:.9g}" for x, y, z in mesh.positions]
+    lines += [f"vn {x:.9g} {y:.9g} {z:.9g}" for x, y, z in mesh.normals]
+    lines += [f"f {a + 1}//{a + 1} {b + 1}//{b + 1} {c + 1}//{c + 1}"
+              for a, b, c in mesh.indices]
+    for name in ("bunny.obj", "bunny_flat.obj"):
+        with open(os.path.join(directory, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return mesh
 
 
-SCENES = {"more_balls": examples.more_balls, "bunny_standin": bunny_standin}
+def check_loaded_mesh(name, path, mesh):
+    """The OBJ loader's mesh has the icosphere's triangles, corner for
+    corner (the loader numbers vertices in order of first use)."""
+    loaded = obj.load(path)
+    same = loaded.num_triangles == mesh.num_triangles and all(
+        np.array_equal(getattr(loaded, f)[loaded.indices],
+                       getattr(mesh, f)[mesh.indices])
+        for f in ("positions", "normals"))
+    gate(f"{name}: loaded OBJ equals the icosphere (corners, normals)",
+         f"{loaded.num_triangles} triangles, equal {same}",
+         same, f"{mesh.num_triangles} triangles, equal True")
+
+
+# The bunny scenes (camera, sky panorama, metal ground; DebugNormals mesh
+# for `bunny`, green glass for `glass_bunny`) with the icosphere, read from
+# a written OBJ file, in the bunny's place.
+SCENES = {"more_balls": lambda assets: examples.more_balls(),
+          "bunny_standin": examples.bunny}
 
 
 # -------------------------------------------- phase 3: kernel vs plain/brute
@@ -360,8 +399,9 @@ def timed_frames(scene, frames=3):
 def instrumented_frame(scene):
     """One frame driven chunk by chunk and bounce by bounce through the
     port's own pieces, with events around each phase. Returns the phase
-    sums (ms), the kernel's visits, the number of intersect calls, and the
-    kernel inputs of the middle chunk's launches."""
+    sums (ms), the kernel's visits, the number of intersect calls, the
+    kernel inputs of the middle chunk's launches, and the passes (chunks
+    still running) at each bounce."""
     accel, tables, dev = scene.accel, scene.tables, scene.device
     marks = []     # (phase, start event, end event)
     visits = []
@@ -390,6 +430,7 @@ def instrumented_frame(scene):
     total = WIDTH * HEIGHT * SPP
     num_chunks = (total + CHUNK - 1) // CHUNK
     calls = 0
+    per_bounce = [0] * BOUNCES
     f0 = event()
     for c in range(num_chunks):
         state_box["capture"] = c == num_chunks // 2
@@ -407,6 +448,7 @@ def instrumented_frame(scene):
             state = step(state, bounce, ids)
             s1 = event()
             marks.append(("bounce step", s0, s1))
+            per_bounce[bounce] += 1
             bounce += 1
             calls += 1
     f1 = event()
@@ -417,7 +459,7 @@ def instrumented_frame(scene):
     sums["shading"] = sums.pop("bounce step") - sums["queue build"] \
         - sums["kernel"] - sums["epilogue"]
     sums["frame"] = elapsed_ms(f0, f1)
-    return sums, torch.cat(visits), calls, captured
+    return sums, torch.cat(visits), calls, captured, per_bounce
 
 
 def kernel_bound_ms(scene, inp, visits, can_hit, visits_block) -> dict:
@@ -585,11 +627,12 @@ def phase_main_path(scenes):
                               max_bounce=BOUNCES, seed=SEED,
                               driver="chunked")          # also the warm-up
         check_image(name, out)
+        results[name] = {"chunked_out": out}
         before = flash.flash_intersect_kernel.launches
         ms, segs = timed_frames(scene)
         per_frame = (flash.flash_intersect_kernel.launches - before) / len(ms)
-        results[name] = {"frame_ms": ms, "segments": segs,
-                         "launches_per_frame": per_frame}
+        results[name].update(frame_ms=ms, segments=segs,
+                             launches_per_frame=per_frame)
         say(f"[main path] {name}: {WIDTH}x{HEIGHT}, {SPP} spp, {BOUNCES} "
             f"bounces, chunked driver, chunks of {CHUNK}: "
             f"ms/frame {[round(x, 2) for x in ms]}, "
@@ -603,7 +646,8 @@ def phase_main_path(scenes):
 
     for name, scene in scenes.items():
         before = flash.flash_intersect_kernel.launches
-        sums, visits, calls, captured = instrumented_frame(scene)
+        sums, visits, calls, captured, per_bounce = \
+            instrumented_frame(scene)
         took = flash.flash_intersect_kernel.launches - before
         gate(f"{name}: one launch per chunk per bounce taken",
              f"{took} launches, {calls} bounce steps", took == calls,
@@ -634,10 +678,196 @@ def phase_main_path(scenes):
                 f"granularity {json.dumps(r['bound']['pairs_at_block'])})")
         results[name].update(
             phases_ms=sums, shares=shares, frame_instrumented_ms=frame,
+            chunked_passes_per_bounce=per_bounce,
             kernel_mean_ms_in_frame=sums["kernel"] / calls,
             frame_visits=visits.sum(0).tolist(), rows=rows)
         small_frame_agreement(name, scene)
     return results, launches
+
+
+# -------------------------------- phase 5: the default driver and the CLI
+
+DRIVERS = ("chunked", "compact")
+
+
+def count_syncs(fn) -> int:
+    """Host-device synchronisations while fn() runs, as torch's sync debug
+    mode reports them (a tensor read on the host, a copy to or from the
+    host, a data-dependent shape)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def same_image(a, b) -> bool:
+    return (a.segments == b.segments and np.array_equal(a.color, b.color)
+            and np.array_equal(a.normal, b.normal)
+            and np.array_equal(a.coverage, b.coverage))
+
+
+def time_drivers(name, scene, frames=3):
+    """`frames` whole frames of each driver, in turns (chunked, compact,
+    chunked, ...), through compile_frame; then one frame of each under the
+    sync counter. Returns per driver: ms, segments and launches a frame,
+    passes a bounce (compact: from the driver; chunked: filled in by the
+    caller) and host syncs a frame."""
+    fns = {d: renderer.compile_frame(scene, WIDTH, HEIGHT, SPP, BOUNCES,
+                                     driver=d) for d in DRIVERS}
+    rows = {d: {"frame_ms": [], "segments": [], "launches": []}
+            for d in DRIVERS}
+    for i in range(frames):
+        for d in DRIVERS:
+            fn, starts = fns[d]
+            before = flash.flash_intersect_kernel.launches
+            a = event()
+            out = fn(scene.tables, scene.camera, SEED + i, starts)
+            b = event()
+            sync(scene.device)
+            rows[d]["frame_ms"].append(elapsed_ms(a, b))
+            rows[d]["segments"].append(int(out.segments.sum()))
+            rows[d]["launches"].append(
+                flash.flash_intersect_kernel.launches - before)
+    for d in DRIVERS:
+        fn, starts = fns[d]
+        rows[d]["host_syncs"] = count_syncs(lambda: (
+            fn(scene.tables, scene.camera, SEED, starts), sync(scene.device)))
+        rows[d]["segments_per_s"] = [
+            s / (m / 1e3) for s, m in zip(rows[d]["segments"],
+                                          rows[d]["frame_ms"])]
+    rows["compact"]["passes_per_bounce"] = list(fns["compact"][0].passes)
+    gate(f"{name}: segments a frame equal under both drivers",
+         f"{rows['chunked']['segments']} / {rows['compact']['segments']}",
+         rows["chunked"]["segments"] == rows["compact"]["segments"],
+         "equal")
+    return rows
+
+
+def truncate_checkpoint(path, keep):
+    """Rewrite the checkpoint as if the process had died after `keep`
+    chunks were saved."""
+    ckpt = dict(np.load(path))
+    ckpt["chunks_done"] = keep
+    for k in ("color", "aov_normal", "aov_hit", "segments"):
+        ckpt[k] = ckpt[k][:keep]
+    with open(path, "wb") as f:
+        np.savez(f, **ckpt)
+
+
+class EventList:
+    """A metrics stream that keeps each record written to it."""
+
+    def __init__(self):
+        self.records = []
+
+    def write(self, line):
+        self.records.append(json.loads(line))
+
+
+def phase_cli(balls_image):
+    """The CLI in-process at full width: `render` to a TGA file (read back
+    and held against render(...).srgb()), `bench` (one JSON line) and
+    `--metrics`."""
+    args = ["--scene", "more_balls", "--width", str(WIDTH), "--height",
+            str(HEIGHT), "--spp", str(SPP), "--max-bounce", str(BOUNCES),
+            "--seed", str(SEED)]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="potato_cli_") as tmp:
+        tga_path = os.path.join(tmp, "more_balls.tga")
+        metrics_path = os.path.join(tmp, "metrics.jsonl")
+        rc = cli.main(["render", *args, "--output", tga_path,
+                       "--metrics", metrics_path])
+        gate("cli render exit code", rc, rc == 0, "0")
+        written = tga.load(tga_path)
+        with open(metrics_path) as f:
+            events = [json.loads(line)["event"] for line in f
+                      if line.strip()]
+    want = balls_image.srgb()
+    gate("cli render: TGA read back equals render(...).srgb() bit for bit",
+         f"{written.shape}, {int((written != want).any(-1).sum())} pixels "
+         "differ", written.shape == want.shape
+         and np.array_equal(written, want), "0 differ")
+    gate("cli --metrics: render_start and render_complete written",
+         f"{len(events)} events, first {events[:1]}, last {events[-1:]}",
+         "render_start" in events and "render_complete" in events, "both")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["bench", *args])
+    lines = buf.getvalue().strip().splitlines()
+    bench = json.loads(lines[-1]) if lines else {}
+    gate("cli bench: one JSON line, the frame's segments",
+         f"rc {rc}, {len(lines)} line(s): {lines[-1] if lines else ''}",
+         rc == 0 and len(lines) == 1
+         and bench.get("segments") == balls_image.segments,
+         f"rc 0, 1 line, segments {balls_image.segments}")
+    say(f"[cli] render + bench of more_balls at {WIDTH}x{HEIGHT}: "
+        f"{time.perf_counter() - t0:.1f} s with both scene builds")
+    return bench
+
+
+def phase_checkpoint(balls):
+    """A 160x120 render of more_balls (3 chunks) with a checkpoint, cut
+    after 2 chunks and resumed, against one render straight through."""
+    kw = dict(spp=SPP, max_bounce=BOUNCES, seed=SEED)
+    num_chunks = -(-160 * 120 * SPP // CHUNK)
+    straight = renderer.render(balls, 160, 120, **kw)
+    with tempfile.TemporaryDirectory(prefix="potato_ckpt_") as tmp:
+        path = os.path.join(tmp, "render.ckpt.npz")
+        renderer.render(balls, 160, 120, checkpoint_path=path, **kw)
+        truncate_checkpoint(path, keep=2)
+        log = EventList()
+        resumed = renderer.render(
+            balls, 160, 120, checkpoint_path=path,
+            metrics=metrics_mod.MetricsLogger(stream=log), **kw)
+    redone = [r["chunk"] for r in log.records if r["event"] == "chunk"]
+    want = list(range(2, num_chunks))
+    gate(f"checkpoint cut after 2 of {num_chunks} chunks, resumed: "
+         "bit-equal to a render straight through", f"chunks redone {redone},"
+         f" equal {same_image(resumed, straight)}",
+         redone == want and same_image(resumed, straight),
+         f"chunks redone {want}, equal True")
+
+
+def phase_default_driver(scenes, main_results):
+    """Each scene at full width through render() with its default driver,
+    held bit for bit against the chunked image; both drivers timed in
+    turns. Returns per-scene driver rows and the images rendered."""
+    rows, images = {}, {}
+    for name, scene in scenes.items():
+        default = renderer.default_driver(scene)
+        kw = dict(spp=SPP, max_bounce=BOUNCES, seed=SEED)
+        compact = renderer.render(
+            scene, WIDTH, HEIGHT,
+            driver=None if default == "compact" else "compact", **kw)
+        chunked = main_results[name]["chunked_out"] if name in main_results \
+            else renderer.render(scene, WIDTH, HEIGHT, driver="chunked", **kw)
+        check_image(f"{name} (compact)", compact)
+        off = int((compact.color != chunked.color).any(-1).sum())
+        gate(f"{name}: default driver {default}; compact image equals the "
+             "chunked image bit for bit (color, normal, coverage, segments)",
+             f"{off} pixels differ in color, segments {compact.segments} / "
+             f"{chunked.segments}", same_image(compact, chunked),
+             "0 differ, equal")
+        images[name] = compact
+        rows[name] = r = time_drivers(name, scene)
+        if name in main_results:
+            per_bounce = main_results[name]["chunked_passes_per_bounce"]
+        else:
+            per_bounce = instrumented_frame(scene)[4]
+        r["chunked"]["passes_per_bounce"] = per_bounce
+        for d in DRIVERS:
+            x = r[d]
+            say(f"[drivers] {name}: {d}{' (default)' if d == default else ''}"
+                f": ms/frame {[round(m, 2) for m in x['frame_ms']]}, "
+                f"segments/s {[round(v) for v in x['segments_per_s']]}, "
+                f"kernel launches/frame {x['launches']}, passes a bounce "
+                f"{x['passes_per_bounce']}, host syncs/frame "
+                f"{x['host_syncs']}")
+    return rows, images
 
 
 def ptxas_summary(log: str) -> dict:
@@ -692,8 +922,14 @@ def main(argv=None) -> int:
          ptxas["spill_bytes"] == 0, "0 bytes")
 
     t0 = time.perf_counter()
-    scenes = {name: make().build(accel="flash", device=device)
-              for name, make in SCENES.items()}
+    with tempfile.TemporaryDirectory(prefix="potato_assets_") as assets:
+        mesh = write_standin_assets(assets)
+        for f in ("bunny.obj", "bunny_flat.obj"):
+            check_loaded_mesh(f, os.path.join(assets, f), mesh)
+        scenes = {name: make(assets).build(accel="flash", device=device)
+                  for name, make in SCENES.items()}
+        glass = examples.glass_bunny(assets).build(accel="flash",
+                                                   device=device)
     say(f"[scenes] built in {time.perf_counter() - t0:.1f} s: " + ", ".join(
         f"{n}: {s.num_spheres} spheres, {s.num_triangles} triangles"
         for n, s in scenes.items()))
@@ -708,6 +944,23 @@ def main(argv=None) -> int:
         for name, scene in scenes.items():
             profile_chunk(name, scene)
 
+    # the default driver of every scene and the CLI: counted on their own
+    flash.flash_intersect_kernel.launches = 0
+    t0 = time.perf_counter()
+    driver_rows, images = phase_default_driver(
+        {"more_balls": scenes["more_balls"], "glass_standin": glass,
+         "bunny_standin": scenes["bunny_standin"]}, results)
+    phase_cli(images["more_balls"])
+    phase_checkpoint(scenes["more_balls"])
+    launches_default = flash.flash_intersect_kernel.launches
+    compact_launches = sum(sum(r["compact"]["launches"])
+                           for r in driver_rows.values())
+    gate("kernel launches of the compact driver's timed frames",
+         compact_launches, compact_launches >= 3 * len(driver_rows),
+         f">= {3 * len(driver_rows)}")
+    say(f"[drivers] phase in {time.perf_counter() - t0:.1f} s, "
+        f"{launches_default} kernel launches")
+
     rows = [r for res in results.values() for r in res["rows"]]
     bound_ms = float(np.mean([r["bound"]["ms"] for r in rows]))
     by_ops = float(np.mean([r["bound"]["ops_ms"] for r in rows])) >= \
@@ -717,7 +970,11 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": REPLACES,
-        "launches": launches,
+        "launches": launches + launches_default,
+        "launches_by_path": {
+            "main path (chunked, forced)": launches,
+            "default driver of each scene, CLI, checkpoint":
+                launches_default},
         "max_abs_err": max_abs_err,
         "ms": float(np.mean([r["ms"] for r in rows])),
         "plain_ms": float(np.mean([r["plain_ms"] for r in rows])),
@@ -757,6 +1014,12 @@ def main(argv=None) -> int:
                 "bound_ms": [r["bound"]["ms"] for r in res["rows"]],
             } for name, res in results.items()},
     }]}
+    per_scene = kernels["kernels"][0]["per_scene"]
+    for name, by_driver in driver_rows.items():
+        per_scene.setdefault(name, {})["drivers"] = {
+            d: {k: by_driver[d][k] for k in (
+                "frame_ms", "segments_per_s", "launches",
+                "passes_per_bounce", "host_syncs")} for d in DRIVERS}
     say(f"[done] {time.perf_counter() - t_start:.0f} s in all")
     say(card)
     say(json.dumps(kernels))

@@ -1,13 +1,19 @@
-"""Render driver: chunked, deterministic full-frame rendering.
+"""Render driver: deterministic full-frame rendering.
 
-The flat (pixel x sample) ray index space is cut into equal chunks, each
-traced to completion in turn. Determinism is total: every ray's randomness
-is a pure function of (seed, ray id), so chunk size and chunk order never
-change the image.
+The flat (pixel x sample) ray index space is cut into equal chunks. The
+chunked driver traces each chunk to completion in turn; the compact driver
+(render/compact.py) goes bounce by bounce over all chunks and packs the
+survivors. Determinism is total: every ray's randomness is a pure function
+of (seed, ray id), so chunk size, chunk order and driver never change the
+image.
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
+import sys
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -36,6 +42,24 @@ class RenderOutput:
     def srgb(self) -> np.ndarray:
         """(H, W, 4) uint8, gamma 1/2.2."""
         return pcolor.to_srgb_u8(torch.from_numpy(self.color)).numpy()
+
+
+def scene_digest(scene: CompiledScene) -> int:
+    """Order-stable 63-bit digest of the scene content (tables + camera).
+
+    Folded into the render-checkpoint signature so a checkpoint written for
+    one scene can never be resumed into a render of another (or of the same
+    scene after edits). Fetches the tables to the host once; only called on
+    checkpointing paths.
+    """
+    h = hashlib.blake2b(digest_size=8)
+    for record in (scene.tables, scene.camera):
+        for leaf in record:
+            a = leaf.cpu().numpy()
+            h.update(str(a.dtype).encode())
+            h.update(str(a.shape).encode())
+            h.update(a.tobytes())
+    return int.from_bytes(h.digest(), "little") >> 1  # fits int64
 
 
 def make_intersect_fn(scene: CompiledScene, force_plain: bool = False):
@@ -159,17 +183,25 @@ def _resolve(scene, device, driver, width, height, spp, chunk_size):
             "was requested; build the scene with the same device")
     if driver is None:
         driver = default_driver(scene)
-    if driver == "compact":
-        raise NotImplementedError(
-            "driver='compact' is not ported yet (ROADMAP.md queue A, "
-            "'Compacted breadth-first driver'); pass driver='chunked'")
-    if driver != "chunked":
+    if driver not in ("chunked", "compact"):
         raise ValueError(f"unknown driver {driver!r}")
     total = width * height * spp
     if chunk_size is None:
         chunk_size = DEFAULT_CHUNK
     chunk_size = min(chunk_size, total)
-    return chunk_size, (total + chunk_size - 1) // chunk_size
+    return driver, chunk_size, (total + chunk_size - 1) // chunk_size
+
+
+def _frame_fn(driver, scene, width, height, spp, max_bounce, chunk_size, *,
+              jitter, aovs, force_plain):
+    """The frame function of `driver` (see compile_frame)."""
+    if driver == "compact":
+        from potato_tpu_torch.render.compact import build_compact_frame_fn
+        return build_compact_frame_fn(scene, width, height, spp, max_bounce,
+                                      chunk_size, aovs=aovs, jitter=jitter,
+                                      force_plain=force_plain)
+    return _build_frame_fn(scene, width, height, spp, max_bounce, chunk_size,
+                           jitter=jitter, aovs=aovs, force_plain=force_plain)
 
 
 def compile_frame(scene: CompiledScene, width: int, height: int, spp: int = 4,
@@ -181,45 +213,158 @@ def compile_frame(scene: CompiledScene, width: int, height: int, spp: int = 4,
     Returns (frame_fn, starts): frame_fn(tables, camera, seed, starts)
     -> TraceResult of stacked chunks, entirely on the device.
 
-    driver: "chunked" (each chunk runs its bounce loop to completion) or
-    None = per-scene default (`default_driver`); "compact" is not ported.
+    driver: "chunked" (each chunk runs its bounce loop to completion),
+    "compact" (bounce-major with live-ray compaction, render/compact.py;
+    the frame's segments in element 0) or None = per-scene default
+    (`default_driver`).
     """
-    chunk_size, num_chunks = _resolve(scene, device, driver, width, height,
-                                      spp, chunk_size)
-    frame_fn = _build_frame_fn(scene, width, height, spp, max_bounce,
-                               chunk_size, aovs=aovs, force_plain=force_plain)
+    driver, chunk_size, num_chunks = _resolve(
+        scene, device, driver, width, height, spp, chunk_size)
+    frame_fn = _frame_fn(driver, scene, width, height, spp, max_bounce,
+                         chunk_size, jitter=True, aovs=aovs,
+                         force_plain=force_plain)
     starts = torch.arange(num_chunks, dtype=torch.int64,
                           device=scene.device) * chunk_size
     return frame_fn, starts
 
 
+def _per_chunk(scene, frame_fn, starts, chunk_size, total, seed, signature,
+               progress, checkpoint_path, checkpoint_every, metrics):
+    """Dispatch one chunk at a time: a progress line and a `chunk` event
+    per chunk, and a running-image checkpoint every `checkpoint_every`
+    chunks (atomic write-then-rename). A checkpoint whose signature equals
+    `signature` is resumed after its last saved chunk; any other is
+    ignored and overwritten. Returns the stacked TraceResult."""
+    num_chunks = starts.shape[0]
+    chunks = []       # device TraceResults of one chunk each, in order
+    host_chunks = []  # numpy copies already written to the checkpoint
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        with np.load(checkpoint_path) as ckpt:
+            if np.array_equal(ckpt["signature"], signature):
+                saved = [ckpt[f] for f in TraceResult._fields]
+                host_chunks = [TraceResult(*(a[i] for a in saved))
+                               for i in range(int(ckpt["chunks_done"]))]
+        chunks = [TraceResult(*(torch.from_numpy(np.asarray(x))
+                                .to(scene.device) for x in c))
+                  for c in host_chunks]
+        if progress and chunks:
+            print(f"[resumed at chunk {len(chunks)}/{num_chunks}]",
+                  file=sys.stderr, flush=True)
+
+    def save_checkpoint():
+        # each chunk is fetched to the host once, so a save costs the new
+        # chunks' transfer and a local stack, not every chunk again
+        while len(host_chunks) < len(chunks):
+            host_chunks.append(TraceResult(
+                *(x.cpu().numpy() for x in chunks[len(host_chunks)])))
+        tmp = checkpoint_path + ".tmp.npz"
+        with open(tmp, "wb") as f:
+            np.savez(f, signature=signature, chunks_done=len(host_chunks),
+                     **{name: np.stack([getattr(c, name) for c in host_chunks])
+                        for name in TraceResult._fields})
+        os.replace(tmp, checkpoint_path)  # atomic: never a torn file
+
+    for i in range(len(chunks), num_chunks):
+        t_c = time.perf_counter()
+        one = frame_fn(scene.tables, scene.camera, seed, starts[i:i + 1])
+        chunks.append(TraceResult(*(x[0] for x in one)))
+        if scene.device.type == "cuda":
+            torch.cuda.synchronize(scene.device)
+        metrics.log("chunk", chunk=i, of=num_chunks,
+                    seconds=round(time.perf_counter() - t_c, 4))
+        if checkpoint_path and ((i + 1) % checkpoint_every == 0
+                                or i + 1 == num_chunks):
+            save_checkpoint()
+            metrics.log("checkpoint", chunks_done=i + 1)
+        if progress:
+            done = min((i + 1) * chunk_size, total)
+            print(f"\r[{done}/{total} rays, chunk {i + 1}/{num_chunks}]",
+                  end="" if i + 1 < num_chunks else "\n",
+                  file=sys.stderr, flush=True)
+    return TraceResult(*(torch.stack(f) for f in zip(*chunks)))
+
+
 def render(scene: CompiledScene, width: int, height: int, spp: int = 4,
            max_bounce: int = 8, seed: int = 0,
            chunk_size: Optional[int] = None,
+           progress: bool = False,
            with_aovs: bool = True,
+           checkpoint_path: Optional[str] = None,
+           checkpoint_every: int = 1,
            jitter: bool = True,
            driver: Optional[str] = None,
+           metrics=None,
            device="cuda", force_plain: bool = False) -> RenderOutput:
     """Render a full frame (defaults of the full-size workload: 800x600,
     spp 4, bounce 8, are the caller's to pass).
 
     with_aovs controls only which buffers are fetched to the host.
-    """
-    chunk_size, num_chunks = _resolve(scene, device, driver, width, height,
-                                      spp, chunk_size)
-    total = width * height * spp
-    frame_fn = _build_frame_fn(scene, width, height, spp, max_bounce,
-                               chunk_size, jitter=jitter, aovs=True,
-                               force_plain=force_plain)
-    starts = torch.arange(num_chunks, dtype=torch.int64,
-                          device=scene.device) * chunk_size
-    out = frame_fn(scene.tables, scene.camera, seed, starts)
 
+    metrics: optional utils.metrics.MetricsLogger (or the POTATO_METRICS
+    env path): JSONL events render_start, chunk (per-chunk path only),
+    checkpoint and render_complete.
+
+    progress / checkpoint_path: dispatch chunk by chunk, with a progress
+    line per chunk and, with a path, a running-image checkpoint saved
+    every `checkpoint_every` chunks. A rerun with the same arguments on the
+    same scene resumes after the last saved chunk and, because every ray's
+    randomness is a pure function of (seed, ray id), ends with an image
+    bit-identical to an uninterrupted render. This path needs
+    chunk-granular results, so it always takes the chunked driver.
+    """
+    from potato_tpu_torch.utils.metrics import from_env_or
+
+    own_metrics = metrics is None        # a POTATO_METRICS file is ours
+    metrics = from_env_or(metrics)
+    try:
+        t_start = time.perf_counter()
+        driver, chunk_size, num_chunks = _resolve(
+            scene, device, driver, width, height, spp, chunk_size)
+        total = width * height * spp
+        per_chunk = progress or checkpoint_path is not None
+        if per_chunk:
+            driver = "chunked"
+        metrics.log("render_start", width=width, height=height, spp=spp,
+                    max_bounce=max_bounce, seed=seed, chunk_size=chunk_size,
+                    num_chunks=num_chunks, per_chunk=per_chunk,
+                    driver=driver)
+        frame_fn = _frame_fn(driver, scene, width, height, spp, max_bounce,
+                             chunk_size, jitter=jitter, aovs=True,
+                             force_plain=force_plain)
+        starts = torch.arange(num_chunks, dtype=torch.int64,
+                              device=scene.device) * chunk_size
+        if per_chunk:
+            # the checkpoint is valid only for an identical request OF THE
+            # SAME SCENE: a digest of the tables and camera is part of it
+            signature = np.asarray([width, height, spp, max_bounce, seed,
+                                    chunk_size, int(jitter),
+                                    scene_digest(scene)], np.int64)
+            out = _per_chunk(scene, frame_fn, starts, chunk_size, total,
+                             seed, signature, progress, checkpoint_path,
+                             checkpoint_every, metrics)
+        else:
+            out = frame_fn(scene.tables, scene.camera, seed, starts)
+        result = _to_host(out, width, height, spp, with_aovs)
+        wall = time.perf_counter() - t_start
+        metrics.log("render_complete", segments=result.segments,
+                    seconds=round(wall, 4),
+                    rays_per_s=round(result.segments / max(wall, 1e-9), 1))
+        return result
+    finally:
+        if own_metrics:
+            metrics.close()
+
+
+def _to_host(out: TraceResult, width: int, height: int, spp: int,
+             with_aovs: bool) -> RenderOutput:
+    """Stacked traversal-order rows -> the spp-averaged host images."""
+    total = width * height * spp
+    device = out.color.device
     # rows come back in traversal order; under tile swizzle, scatter them
     # to their physical (pixel, sample) slots before the spp average
     if _tiles_apply(width, height):
         perm = torch.from_numpy(
-            tile_unswizzle_perm(width, height, spp)).to(scene.device)
+            tile_unswizzle_perm(width, height, spp)).to(device)
 
         def unswizzle(rows):
             flat = torch.empty_like(rows)

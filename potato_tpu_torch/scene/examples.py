@@ -7,9 +7,10 @@ The seven example scenes (cameras, material/texture tables, geometry):
 - `glass_bunny` / `bunny`: the SkySphere environment is a procedurally
   generated equirect panorama (sun + horizon gradient) baked into an image
   texture.
-- `earth`, `bunny` and `glass_bunny` read an asset from `POTATO_ASSETS`.
-  The asset loaders (TGA, OBJ) are not ported yet, so with the file absent
-  they raise FileNotFoundError and with it present NotImplementedError.
+- `earth`, `bunny` and `glass_bunny` read an asset (`earthmap.tga`,
+  `bunny.obj`, `bunny_flat.obj`) from `assets_dir`, else from
+  `POTATO_ASSETS`, else from `assets/`; without the file they raise
+  FileNotFoundError.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Optional, Union
 import numpy as np
 
 from potato_tpu_torch.core.stdrng import StdRng
+from potato_tpu_torch.io import obj, tga
 from potato_tpu_torch.scene.description import (
     Absorb,
     Camera,
@@ -32,16 +34,6 @@ from potato_tpu_torch.scene.description import (
 )
 
 ASSETS_DIR = os.environ.get("POTATO_ASSETS", "assets")
-
-
-def _load_asset(path: str):
-    """Asset files are looked up as the scenes name them; reading them waits
-    for the asset IO slice (ROADMAP.md queue A, 'Asset IO + CLI')."""
-    if not os.path.exists(path):
-        raise FileNotFoundError(path)
-    raise NotImplementedError(
-        f"{path}: the TGA/OBJ loaders are not ported yet (ROADMAP.md "
-        "queue A, 'Asset IO + CLI')")
 
 FRAC_PI_2 = np.pi / 2
 FRAC_PI_4 = np.pi / 4
@@ -169,7 +161,7 @@ def earth(assets_dir: Optional[str] = None) -> SceneBuilder:
     s.camera = Camera(aspect_ratio=1.0, fov=np.pi / 9.0, focal_dist=1.0,
                       lens_radius=0.0, position=(13.0, 7.0, 3.0),
                       target=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0))
-    img = _load_asset(os.path.join(assets_dir or ASSETS_DIR, "earthmap.tga"))
+    img = tga.load(os.path.join(assets_dir or ASSETS_DIR, "earthmap.tga"))
     t0 = s.add_texture(Texture.image_(img))
     m0 = s.add_material(Material(Scatter.lambert(), Absorb.albedo_map(t0), Emit.none()))
     s.add_sphere((0.0, 0.0, 0.0), 2.0, m0)
@@ -210,7 +202,7 @@ def _bunny_scene(mesh: Union[str, MeshData], bunny_material: Material,
     m_bunny = s.add_material(bunny_material)
     m_ground = s.add_material(Material(Scatter.metal(0.05), Absorb.albedo(0.8, 0.8, 0.8), Emit.none()))
     if isinstance(mesh, str):
-        mesh = _load_asset(os.path.join(assets_dir or ASSETS_DIR, mesh))
+        mesh = obj.load(os.path.join(assets_dir or ASSETS_DIR, mesh))
     s.add_mesh(mesh, m_bunny)
     s.add_sphere((0.0, -1000.0, -1.0), 1000.0, m_ground)
     s.background = Emit.sky_sphere(t_sky)

@@ -165,10 +165,16 @@ def test_unported_accels_say_so(accel):
 
 
 def test_compact_driver_says_it_is_not_ported():
+    """The compact driver is ported now (tests/test_torch_compact.py holds
+    it): the default and the named driver render the chunked image, and a
+    driver that does not exist is refused."""
     _, ts = _pair("three_balls")     # a dielectric: default is "compact"
+    want = trenderer.render(ts, 16, 8, spp=1, driver="chunked", device="cpu")
     for driver in (None, "compact"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trenderer.render(ts, 16, 8, spp=1, driver=driver, device="cpu")
+        got = trenderer.render(ts, 16, 8, spp=1, driver=driver, device="cpu")
+        np.testing.assert_array_equal(got.color, want.color)
+    with pytest.raises(ValueError, match="unknown driver"):
+        trenderer.render(ts, 16, 8, spp=1, driver="wavefront", device="cpu")
 
 
 @pytest.mark.parametrize("name", ["earth", "bunny", "glass_bunny"])
