@@ -26,7 +26,22 @@
    host syncs a frame, passes a bounce), runs the CLI in-process (render to
    a TGA file held against srgb(), bench, --metrics) and resumes a cut
    checkpoint, counting the kernel's launches on its own;
-6. prints one JSON line describing every kernel, then a verdict line.
+6. drives the differentiable path at 800x600, 2 spp, 4 bounces through the
+   kernel: optimize_textures on the earth scene (a procedural 1024x512
+   earthmap.tga written from the seed, the atlas fitted from a constant
+   0.5 start, 3 Adam steps) and on more_balls (albedos and scatter
+   parameters from 0.8 x the albedos, 2 steps), gating finite gradients,
+   falling losses and the gradients the fields must have; times forward
+   and backward apart, counts chunks and launches a step and the peak
+   memory; and holds the gradient through the kernel against the gradient
+   through the plain version at 64x64 on three_balls and the bunny
+   stand-in;
+7. holds the dense and cluster accelerators against brute force on
+   more_balls and the bunny stand-in (camera and incoherent rays), the
+   pool driver against the chunked one bit for bit, and times a frame of
+   dense, cluster and pool on each of the three scenes (a frame that would
+   not fit the run's time is cut in size, and the cut is printed);
+8. prints one JSON line describing every kernel, then a verdict line.
 
 Any failed gate raises, so the run ends non-zero with no verdict line.
 The script imports only the port (torch, numpy): nothing of JAX.
@@ -49,14 +64,18 @@ import torch
 
 from potato_tpu_torch import cli
 from potato_tpu_torch.core.types import RayBatch
+from potato_tpu_torch.diff import optimize
 from potato_tpu_torch.io import obj, tga
 from potato_tpu_torch.ops import _build
 from potato_tpu_torch.ops import flash
+from potato_tpu_torch.ops.dense import intersect_dense
 from potato_tpu_torch.ops.intersect import intersect_brute_force
-from potato_tpu_torch.render import renderer
+from potato_tpu_torch.ops.traverse import intersect_clustered
+from potato_tpu_torch.render import renderer, wavefront
 from potato_tpu_torch.render.camera import generate_rays
 from potato_tpu_torch.render.integrator import init_state, make_bounce_step
 from potato_tpu_torch.scene import examples
+from potato_tpu_torch.scene import description as desc
 from potato_tpu_torch.scene.description import MeshData
 from potato_tpu_torch.utils import metrics as metrics_mod
 
@@ -315,13 +334,17 @@ def compare_kernel_with_plain(label, scene, rays, block=flash.R) -> float:
     return max_abs
 
 
-def compare_flash_with_brute(label, scene, rays, step=2048):
+def compare_flash_with_brute(label, scene, rays, step=2048, intersect=None):
     """The gates of tests/test_flash.py::_assert_same, on the card. At
     2^15 rays a few graze a primitive, where the kernel's pair tests and
     the oracle's (other formulas for the same geometry) may name different
     winners; such a ray differs in material and in t alike, so t is held
-    to the same > 99.5 % share as the material."""
-    out = flash.intersect_flash(scene.accel, scene.tables, rays)
+    to the same > 99.5 % share as the material. `intersect(rays)` is the
+    intersector under test (default: the scene's flash path)."""
+    if intersect is None:
+        out = flash.intersect_flash(scene.accel, scene.tables, rays)
+    else:
+        out = intersect(rays)
     parts = []
     for s in range(0, rays.origin.shape[0], step):
         cut = RayBatch(*(f[s:s + step] for f in rays))
@@ -333,7 +356,8 @@ def compare_flash_with_brute(label, scene, rays, step=2048):
     err = (out.t - brute.t).abs()[v]
     close = err <= 2e-3 + 1e-3 * brute.t[v].abs()
     same_mat = (out.material == brute.material)[v].float().mean()
-    say(f"[flash vs brute force] {label}: {int(brute.valid.sum())} hits")
+    say(f"[{'flash' if intersect is None else 'intersector'} vs brute "
+        f"force] {label}: {int(brute.valid.sum())} hits")
     gate("valid agreement", f"{float(same_valid.float().mean()):.6f}",
          float(same_valid.float().mean()) > 0.995, "> 0.995")
     gate("t within rtol 1e-3 atol 2e-3",
@@ -870,6 +894,288 @@ def phase_default_driver(scenes, main_results):
     return rows, images
 
 
+# ------------------------------------- phase 6: the differentiable path
+
+# optimize_textures' defaults (spp 2, 4 bounces) at the reference frame size
+OPT_W, OPT_H, OPT_SPP, OPT_BOUNCES = 800, 600, 2, 4
+
+
+def write_earthmap(directory, seed=SEED, width=1024, height=512):
+    """A procedural earthmap.tga at the real file's size in `directory`: a
+    smooth gradient plus a checker, with seeded noise."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:height, 0:width]
+    img = np.empty((height, width, 3), np.int64)
+    img[..., 0] = 40 + 180 * x // width
+    img[..., 1] = 40 + 160 * y // height
+    img[..., 2] = np.where((x // 64 + y // 64) % 2 == 0, 200, 60)
+    img += rng.integers(0, 24, img.shape)
+    tga.save(np.clip(img, 0, 255).astype(np.uint8),
+             os.path.join(directory, "earthmap.tga"))
+
+
+def profiled_gradient(loss, params, ids, target):
+    """One chunk-by-chunk gradient with a CUDA event at each chunk's
+    forward, backward and end: (loss, grads, forward ms, backward ms,
+    chunks, peak bytes allocated during it)."""
+    marks = []
+    sync(target.device)
+    torch.cuda.reset_peak_memory_stats()
+    value, grads = loss.value_and_grad(
+        params, ids, target, stamp=lambda label: marks.append((label,
+                                                               event())))
+    sync(target.device)
+    ms = {"forward": 0.0, "backward": 0.0}
+    for (label, a), (_, b) in zip(marks, marks[1:]):
+        if label in ms:
+            ms[label] += elapsed_ms(a, b)
+    return (float(value), grads, ms["forward"], ms["backward"], loss.chunks,
+            torch.cuda.max_memory_allocated())
+
+
+def run_optimize(name, scene, target, fields, init, steps, learning_rate):
+    """optimize_textures at OPT_* from `init`, then one profiled gradient
+    at the same start. Returns a row of readings."""
+    log = EventList()
+    before = flash.flash_intersect_kernel.launches
+    torch.cuda.reset_peak_memory_stats()
+    res = optimize.optimize_textures(
+        scene, target, width=OPT_W, height=OPT_H, spp=OPT_SPP,
+        max_bounce=OPT_BOUNCES, seed=SEED, fields=fields, steps=steps,
+        learning_rate=learning_rate, init=init, log_every=0,
+        metrics=metrics_mod.MetricsLogger(stream=log))
+    sync(scene.device)
+    opt_peak = torch.cuda.max_memory_allocated()
+    launches = flash.flash_intersect_kernel.launches - before
+    seconds = [r["seconds"] for r in log.records if r["event"] == "opt_step"]
+    loss = optimize.make_render_loss(
+        scene, width=OPT_W, height=OPT_H, spp=OPT_SPP,
+        max_bounce=OPT_BOUNCES, seed=SEED, fields=fields)
+    dev = scene.device
+    params = {f: torch.as_tensor(np.asarray(init[f]), device=dev)
+              if f in init else getattr(scene.tables, f) for f in fields}
+    ids = torch.arange(OPT_W * OPT_H * OPT_SPP, device=dev)
+    tgt = torch.as_tensor(np.asarray(target, np.float32).reshape(-1, 3),
+                          device=dev)
+    value, grads, fwd, bwd, chunks, peak = profiled_gradient(
+        loss, params, ids, tgt)
+    row = {"losses": res.losses, "learning_rate": learning_rate,
+           "step_seconds": seconds,
+           "launches_per_step": launches / steps, "chunks_per_step": chunks,
+           "forward_ms": fwd, "backward_ms": bwd,
+           "backward_over_forward": bwd / fwd, "peak_bytes_gradient": peak,
+           "peak_bytes_optimize": opt_peak, "profiled_loss": value,
+           "scene_bytes": sum(t.numel() * t.element_size()
+                              for t in scene.tables)}
+    say(f"[diff] {name}: {OPT_W}x{OPT_H}, {OPT_SPP} spp, {OPT_BOUNCES} "
+        f"bounces, fields {list(fields)}, Adam at {learning_rate}: losses "
+        f"{res.losses}; seconds a "
+        f"step {seconds} (host clock); one gradient: forward "
+        f"{fwd:.1f} ms, backward {bwd:.1f} ms (ratio {bwd / fwd:.2f}), "
+        f"{chunks} chunks; kernel launches a step {launches / steps}; peak "
+        f"memory {peak / 2**20:.1f} MiB in the gradient, "
+        f"{opt_peak / 2**20:.1f} MiB over optimize_textures")
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    gate(f"{name}: every gradient finite", finite, finite, "True")
+    gate(f"{name}: loss after the last step below the first step's",
+         f"{res.losses[0]:.6g} -> {res.losses[-1]:.6g}",
+         res.losses[-1] < res.losses[0], "falls")
+    return row, grads
+
+
+def grad_kernel_vs_plain(name, scene, fields, size=64, spp=2, bounces=2):
+    """The gradient through the kernel against the gradient through its
+    plain version, on one frame. Kernel and plain version differ in t by
+    rounding on under 0.01 % of rays (ROADMAP.md queue C), which moves a
+    bounce's hit point by ~1e-4 of its distance; hence a relative L2 gate
+    of 1e-3 rather than equality."""
+    dev = scene.device
+    rng = np.random.default_rng(SEED)
+    target = torch.tensor(rng.uniform(0, 1, (size * size, 3))
+                          .astype(np.float32), device=dev)
+    ids = torch.arange(size * size * spp, device=dev)
+    params = {f: getattr(scene.tables, f) for f in fields}
+    got = []
+    for plain in (False, True):
+        loss = optimize.make_render_loss(
+            scene, width=size, height=size, spp=spp, max_bounce=bounces,
+            seed=SEED, fields=fields, force_plain=plain)
+        got.append(loss.value_and_grad(params, ids, target)[1])
+    worst = 0.0
+    for f in fields:
+        k, p = got[0][f].double(), got[1][f].double()
+        rel = float((k - p).norm() / p.norm().clamp(min=1e-30))
+        worst = max(worst, rel)
+        gate(f"{name}: {size}x{size}x{spp}spp, {bounces} bounces, gradient "
+             f"of {f} through the kernel vs through the plain version, "
+             f"relative L2", f"{rel:.3e} (|g| {float(p.norm()):.3e})",
+             rel <= 1e-3 and float(p.norm()) > 0, "<= 1e-3, |g| > 0")
+    return worst
+
+
+def phase_differentiable(scenes, earth):
+    """The slice's path: optimize_textures through the kernel at full
+    width on the earth stand-in and on more_balls. Returns its readings
+    and the kernel launches of the path."""
+    dev = earth.device
+    balls = scenes["more_balls"]
+    # Each target is the scene's own render at another seed than the
+    # optimisation's: a target sharing the optimisation's noise realization
+    # makes any move of a scatter parameter decorrelate that noise, and the
+    # realized loss then rises for every step size (PERF.md, findings).
+    kw = dict(spp=OPT_SPP, max_bounce=OPT_BOUNCES, seed=SEED + 1)
+    target_e = renderer.render(earth, OPT_W, OPT_H, **kw).color
+    target_b = renderer.render(balls, OPT_W, OPT_H, **kw).color
+    atlas = earth.tables.atlas
+    init_e = {"atlas": np.full(tuple(atlas.shape), 0.5, np.float32)}
+    init_b = {"m_absorb_color":
+              balls.tables.m_absorb_color.cpu().numpy() * 0.8}
+    sync(dev)
+
+    say(f"[diff] card: {gpu_line()}")
+    flash.flash_intersect_kernel.launches = 0
+    t0 = time.perf_counter()
+    row_e, g_e = run_optimize("earth", earth, target_e, ("atlas",), init_e,
+                              steps=3, learning_rate=0.05)
+    # Adam's first step moves every parameter with a gradient by the whole
+    # learning rate. A scatter parameter's gradient is noisy at 2 spp, and
+    # at 0.05 the step in fuzz and IOR cost more than the albedo step
+    # gained (the loss rose; PERF.md, findings): hence 0.005 here.
+    row_b, g_b = run_optimize("more_balls", balls, target_b,
+                              ("m_absorb_color", "m_scatter_param"), init_b,
+                              steps=2, learning_rate=0.005)
+    launches = flash.flash_intersect_kernel.launches
+    seen = int((g_e["atlas"].abs().amax(dim=-1) > 0).sum())
+    gate("earth: atlas gradient nonzero on the texels the camera sees",
+         f"{seen} of {atlas.shape[0]} texels", seen > 0, "> 0")
+    dielectric = balls.tables.m_scatter_kind == desc.SCATTER_DIELECTRIC
+    moved = int((g_b["m_scatter_param"][dielectric] != 0).sum())
+    gate("more_balls: m_scatter_param gradient nonzero on dielectrics "
+         "(ior_score on)", f"{moved} of {int(dielectric.sum())}", moved > 0,
+         "> 0")
+    gate("kernel launches on the differentiable path", launches,
+         launches > 0, "> 0")
+    say(f"[diff] phase path in {time.perf_counter() - t0:.1f} s, "
+        f"{launches} kernel launches")
+
+    worst = max(
+        grad_kernel_vs_plain("three_balls", scenes["three_balls"],
+                             ("m_absorb_color",)),
+        grad_kernel_vs_plain("bunny_standin", scenes["bunny_standin"],
+                             ("m_absorb_color",)))
+    return {"earth": row_e, "more_balls": row_b,
+            "grad_kernel_vs_plain_rel_l2": worst}, launches
+
+
+# ------------------------- phase 7: the accelerators and the pool driver
+
+FRAME_BUDGET_S = 25.0     # the longest frame phase 7 times at full size
+POOL = wavefront.DEFAULT_POOL
+
+
+def phase_accel_gates(scenes, alt):
+    """dense and cluster against brute force on 2^15 camera rays and 2^15
+    incoherent rays (rays of the flash build; the same geometry)."""
+    mid = (WIDTH * HEIGHT * SPP // CHUNK) // 2
+    for name in ("more_balls", "bunny_standin"):
+        base = scenes[name]
+        for label, rays in (("camera rays", camera_rays(base, mid)),
+                            ("incoherent rays",
+                             incoherent_rays(base, CHUNK, seed=13))):
+            for accel in ("dense", "cluster"):
+                s = alt[name, accel]
+                if accel == "dense":
+                    def run(r, s=s):
+                        return intersect_dense(s.accel, s.tables, r)
+                else:
+                    def run(r, s=s):
+                        return intersect_clustered(s.accel, r)
+                t0 = time.perf_counter()
+                compare_flash_with_brute(f"{accel}, {name}, {label}", s,
+                                         rays, intersect=run)
+                say(f"  ({time.perf_counter() - t0:.2f} s with brute force)")
+
+
+def frame_ms(scene, width, height):
+    """One frame on the scene's default driver through compile_frame,
+    CUDA events around it: (ms, segments)."""
+    fn, starts = renderer.compile_frame(scene, width, height, SPP, BOUNCES)
+    a = event()
+    out = fn(scene.tables, scene.camera, SEED, starts)
+    b = event()
+    sync(scene.device)
+    return elapsed_ms(a, b), int(out.segments.sum())
+
+
+def timed_alt_frame(name, accel, scene):
+    """A frame at full size if a 200x150 frame projects it (x16) under
+    FRAME_BUDGET_S, else at 400x300 if that fits, else at 200x150."""
+    small_ms, small_segs = frame_ms(scene, 200, 150)
+    size = (200, 150)
+    for w, h in ((WIDTH, HEIGHT), (400, 300)):
+        scale = (w * h) / (200 * 150)
+        if small_ms * scale / 1e3 <= FRAME_BUDGET_S:
+            size = (w, h)
+            break
+    ms, segs = (small_ms, small_segs) if size == (200, 150) else \
+        frame_ms(scene, *size)
+    cut = "" if size == (WIDTH, HEIGHT) else (
+        f" (cut to {size[0]}x{size[1]}: the 200x150 frame took "
+        f"{small_ms:.1f} ms, x{WIDTH * HEIGHT // (200 * 150)} would pass "
+        f"{FRAME_BUDGET_S:.0f} s)")
+    say(f"[accels] {name}, {accel}, {renderer.default_driver(scene)} "
+        f"driver: {size[0]}x{size[1]}, {SPP} spp, {BOUNCES} bounces: "
+        f"{ms:.1f} ms a frame, {segs} segments, "
+        f"{segs / (ms / 1e3):.0f} segments/s{cut}")
+    return {"size": list(size), "frame_ms": ms, "segments": segs,
+            "segments_per_s": segs / (ms / 1e3)}
+
+
+def phase_pool_and_frames(scenes, glass, alt, full_images):
+    """The pool driver bit for bit against the chunked driver (64x64 with
+    regeneration, and the full frame against the images of phases 4-5);
+    one timed frame of dense, cluster and pool on each scene. Returns the
+    readings and the kernel launches of the pool frames."""
+    flat = {"more_balls": scenes["more_balls"], "glass_standin": glass,
+            "bunny_standin": scenes["bunny_standin"]}
+    for name in ("more_balls", "glass_standin"):
+        kw = dict(spp=2, max_bounce=BOUNCES, seed=SEED)
+        want = renderer.render(flat[name], 64, 64, driver="chunked", **kw)
+        got = wavefront.render_pool(flat[name], 64, 64, pool=2048, **kw)
+        off = int((got.color != want.color).any(-1).sum())
+        gate(f"{name}: pool of 2048 lanes (4 generations) vs chunked, 64x64,"
+             f" 2 spp, {BOUNCES} bounces, bit for bit", f"{off} pixels "
+             f"differ, segments {got.segments} / {want.segments}",
+             same_image(got, want), "0 differ, equal")
+    rows = {}
+    say(f"[accels] card: {gpu_line()}")
+    flash.flash_intersect_kernel.launches = 0
+    for name, scene in flat.items():
+        fn = wavefront.build_pool_fn(scene, WIDTH, HEIGHT, SPP, BOUNCES,
+                                     POOL)
+        a = event()
+        buf, segments = fn(scene.tables, scene.camera, SEED)
+        b = event()
+        sync(scene.device)
+        ms = elapsed_ms(a, b)
+        out = wavefront.render_pool(scene, WIDTH, HEIGHT, spp=SPP,
+                                    max_bounce=BOUNCES, seed=SEED, pool=POOL)
+        gate(f"{name}: pool of {POOL} lanes, full frame, bit for bit against "
+             "the frame of phases 4-5", same_image(out, full_images[name]),
+             same_image(out, full_images[name]), "True")
+        rows[name] = {"pool": {"frame_ms": ms, "segments": int(segments),
+                               "segments_per_s": int(segments) / (ms / 1e3),
+                               "iterations": fn.iterations}}
+        say(f"[accels] {name}, pool of {POOL}: {ms:.1f} ms a frame, "
+            f"{fn.iterations} iterations, {int(segments)} segments")
+    launches = flash.flash_intersect_kernel.launches
+    for name in flat:
+        for accel in ("dense", "cluster"):
+            rows[name][accel] = timed_alt_frame(name, accel,
+                                                alt[name, accel])
+    return rows, launches
+
+
 def ptxas_summary(log: str) -> dict:
     """Over the kernels of the build (one per slice count): the most
     registers and static shared memory, and all spill bytes, from what
@@ -930,6 +1236,15 @@ def main(argv=None) -> int:
                   for name, make in SCENES.items()}
         glass = examples.glass_bunny(assets).build(accel="flash",
                                                    device=device)
+        # phase 7's builds of the same three scenes on the other accels
+        makers = {"more_balls": examples.more_balls,
+                  "bunny_standin": lambda: examples.bunny(assets),
+                  "glass_standin": lambda: examples.glass_bunny(assets)}
+        alt = {(name, accel): make().build(accel=accel, device=device)
+               for name, make in makers.items()
+               for accel in ("dense", "cluster")}
+        write_earthmap(assets)
+        earth = examples.earth(assets).build(accel="flash", device=device)
     say(f"[scenes] built in {time.perf_counter() - t0:.1f} s: " + ", ".join(
         f"{n}: {s.num_spheres} spheres, {s.num_triangles} triangles"
         for n, s in scenes.items()))
@@ -961,6 +1276,26 @@ def main(argv=None) -> int:
     say(f"[drivers] phase in {time.perf_counter() - t0:.1f} s, "
         f"{launches_default} kernel launches")
 
+    # phase 6, the differentiable path: counted on its own
+    t0 = time.perf_counter()
+    diff_rows, launches_diff = phase_differentiable(
+        {**scenes, "three_balls": examples.three_balls().build(
+            accel="flash", device=device)}, earth)
+    say(f"[diff] phase in {time.perf_counter() - t0:.1f} s")
+
+    # phase 7: dense, cluster and the pool; the pool's frames counted
+    t0 = time.perf_counter()
+    phase_accel_gates(scenes, alt)
+    full_images = {"more_balls": results["more_balls"]["chunked_out"],
+                   "bunny_standin": results["bunny_standin"]["chunked_out"],
+                   "glass_standin": images["glass_standin"]}
+    accel_rows, launches_pool = phase_pool_and_frames(scenes, glass, alt,
+                                                      full_images)
+    gate("kernel launches of the pool's frames", launches_pool,
+         launches_pool > 0, "> 0")
+    say(f"[accels] phase in {time.perf_counter() - t0:.1f} s, "
+        f"{launches_pool} kernel launches")
+
     rows = [r for res in results.values() for r in res["rows"]]
     bound_ms = float(np.mean([r["bound"]["ms"] for r in rows]))
     by_ops = float(np.mean([r["bound"]["ops_ms"] for r in rows])) >= \
@@ -970,11 +1305,15 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": REPLACES,
-        "launches": launches + launches_default,
+        "launches": launches + launches_default + launches_diff
+        + launches_pool,
         "launches_by_path": {
             "main path (chunked, forced)": launches,
             "default driver of each scene, CLI, checkpoint":
-                launches_default},
+                launches_default,
+            "differentiable path (optimize_textures, earth and more_balls)":
+                launches_diff,
+            "pool driver, one frame of each scene": launches_pool},
         "max_abs_err": max_abs_err,
         "ms": float(np.mean([r["ms"] for r in rows])),
         "plain_ms": float(np.mean([r["plain_ms"] for r in rows])),
@@ -1014,6 +1353,8 @@ def main(argv=None) -> int:
                 "bound_ms": [r["bound"]["ms"] for r in res["rows"]],
             } for name, res in results.items()},
     }]}
+    kernels["kernels"][0]["differentiable_path"] = diff_rows
+    kernels["kernels"][0]["accelerators_and_pool"] = accel_rows
     per_scene = kernels["kernels"][0]["per_scene"]
     for name, by_driver in driver_rows.items():
         per_scene.setdefault(name, {})["drivers"] = {

@@ -2,8 +2,8 @@
 kernel written in CUDA C++ for Hopper.
 
 Module for module the counterpart of the JAX package `potato_tpu`
-(`core/`, `scene/`, `ops/`, `render/`), which stays in the repository as
-the reference. This package imports `torch` and numpy only. Every entry
+(`core/`, `io/`, `scene/`, `ops/`, `render/`, `diff/`), which stays in the
+repository as the reference. This package imports `torch` and numpy only. Every entry
 point takes a `device` argument that defaults to ``"cuda"`` and raises
 when no card is present; pass ``device="cpu"`` to run the plain PyTorch
 version of the kernel (tests do).

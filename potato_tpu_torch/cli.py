@@ -19,7 +19,7 @@ import time
 
 # --accel values the port takes, and the reference's names for them
 _ACCELS = {"auto": "flash", "flash": "flash", "pallas": "flash",
-           "brute": "brute"}
+           "dense": "dense", "cluster": "cluster", "brute": "brute"}
 
 
 def _add_render_args(p: argparse.ArgumentParser) -> None:
@@ -35,11 +35,12 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
                    default="auto",
                    help="acceleration structure (auto = flash, the "
                         "hand-written kernel's path; pallas is another "
-                        "name for it; dense and cluster are not ported)")
+                        "name for it; dense = matrix products, cluster = "
+                        "Morton clusters, brute = every primitive)")
     p.add_argument("--no-progress", action="store_true",
                    help="single-dispatch render without per-chunk progress")
     p.add_argument("--cluster-size", type=int, default=64,
-                   help="clusters of --accel cluster (not ported)")
+                   help="primitives per cluster of --accel cluster")
     p.add_argument("--chunk-size", type=int, default=None,
                    help="rays per chunk (default: min(total, 2^15))")
     p.add_argument("--driver", choices=["auto", "chunked", "compact"],
@@ -64,15 +65,12 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
 def _build_scene(args):
     from potato_tpu_torch.scene import examples
 
-    if args.accel in ("dense", "cluster"):
-        raise NotImplementedError(
-            f"--accel {args.accel} is not ported yet (ROADMAP.md queue A, "
-            "item 11, 'Alternative accels'); use flash or brute")
     make = examples.SCENES[args.scene]
     kw = {}
     if args.assets and "assets_dir" in inspect.signature(make).parameters:
         kw["assets_dir"] = args.assets
-    return make(**kw).build(accel=_ACCELS[args.accel], device=args.device)
+    return make(**kw).build(accel=_ACCELS[args.accel], device=args.device,
+                            cluster_size=args.cluster_size)
 
 
 def main(argv=None):

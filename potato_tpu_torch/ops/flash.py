@@ -585,8 +585,16 @@ def prepare_flash(accel: FlashAccel, tables, rays: RayBatch,
     if centers.shape[0] > 0:
         s_t, s_slot, s_hit = _sphere_brute(centers, radii, padded)
         sph_dense = (s_t[:b], s_slot[:b], s_hit[:b])
-        padded = padded._replace(t_max=torch.minimum(padded.t_max, s_t))
+        # detached fold: the queue build and the kernel are not
+        # differentiated (their outputs are detached); gradients reach the
+        # spheres through the epilogue's use of s_t itself
+        padded = padded._replace(
+            t_max=torch.minimum(padded.t_max, s_t.detach()))
 
+    # The kernel's outputs are detached (intersect_flash), so detaching its
+    # inputs changes no gradient, and it keeps autograd from recording the
+    # queue build (or, on the CPU, the plain version) at all.
+    padded = RayBatch(*(f.detach() for f in padded))
     packed_rays = torch.cat(
         [padded.origin.T, padded.direction.T,
          padded.t_min[None], padded.t_max[None]]).contiguous()
@@ -1023,9 +1031,19 @@ def intersect_flash(accel: FlashAccel, tables, rays: RayBatch,
     force_plain runs `flash_intersect_plain` in place of the kernel
     whatever the device; it exists for comparisons (tests, chip_smoke.py).
     Both walk the queues in the same termination groups.
+
+    Gradient conventions: the kernel's outputs (t and winning slots) are
+    detached and the shade table is a constant of the accel, so the
+    kernel has no backward. Scene-parameter gradients (every field of
+    diff/optimize.py's DIFFERENTIABLE_FIELDS) flow through the shading
+    downstream of the HitBatch, which needs the hit's values only; the
+    dense sphere test's t also carries centre and radius gradients. Not
+    differentiable: d(hit decision)/d(geometry).
     """
     inp = prepare_flash(accel, tables, rays, block)
     fn = flash_intersect_plain if force_plain else flash_intersect_kernel
-    raw = fn(inp.packed_rays, inp.queues, accel.tri_flat, accel.sph_feats,
-             block, inp.has_sph, group=resolve_group(block))
+    raw = fn(inp.packed_rays, inp.queues, accel.tri_flat.detach(),
+             accel.sph_feats.detach(), block, inp.has_sph,
+             group=resolve_group(block))
+    raw = tuple(x.detach() for x in raw)
     return flash_epilogue(accel, rays, raw, inp.sph_dense)

@@ -1,8 +1,19 @@
-"""Branchless material evaluation (scatter / absorb / emit).
+"""Branchless, differentiable material evaluation (scatter / absorb / emit).
 
 Every variant a scene uses is computed for every lane; the per-lane
 material kind selects the result. An absorbed path is a False in the
 scatter's valid mask.
+
+Gradient conventions:
+- albedo / emission colours and texels: gradients flow linearly.
+- Metal fuzziness: reparameterized, the fuzzed direction depends smoothly
+  on the parameter (reflect + fuzz * unit ball).
+- Dielectric IOR: gradients flow through eta, Schlick reflectance and the
+  refracted direction; the reflect-vs-refract Bernoulli *choice* is
+  detached (drawn against the detached reflectance). The choice
+  probability's own gradient is recovered by the score-function surrogate
+  of diff/surrogate.py: pass ior_score=True to eval_material /
+  eval_scatter.
 """
 
 from __future__ import annotations
@@ -28,6 +39,9 @@ def _checker_depth(features) -> int:
 class ScatterSample(NamedTuple):
     direction: torch.Tensor  # (B,3) next bounce direction (dummy when invalid)
     valid: torch.Tensor      # (B,) False = path absorbed
+    weight: torch.Tensor = None  # (B,) importance weight, forward value 1.0;
+    # carries the score-function gradient of the dielectric's choice
+    # (diff/surrogate.py) when ior_score=True
 
 
 def _used(kinds, k):
@@ -96,12 +110,11 @@ def eval_scatter(tables, kind, param, ray_direction, hit: HitBatch,
 
     u1..u3: uniforms for the sphere/ball sample; u4: the dielectric's
     reflect-vs-refract Bernoulli draw. All (B,).
+
+    ior_score: attach the score-function surrogate weight of the
+    dielectric's Bernoulli choice (diff/surrogate.py), so that d/d(IOR)
+    also sees the choice-probability term. Forward values are unchanged.
     """
-    if ior_score:
-        raise NotImplementedError(
-            "ior_score (the score-function weight of the dielectric's "
-            "Bernoulli choice) comes with the differentiable path "
-            "(ROADMAP.md queue A, 'Differentiable path')")
     sk = features.scatter_kinds if features is not None else None
     normal = hit.normal
     cos_in = pmath.dot(normal, ray_direction)
@@ -110,6 +123,7 @@ def eval_scatter(tables, kind, param, ray_direction, hit: HitBatch,
     out = torch.zeros_like(ray_direction)
     out[..., 2] = 1.0   # inert dummy for SCATTER_NONE lanes
     valid = torch.zeros_like(backface)
+    weight = torch.ones_like(u1)
 
     if _used(sk, d.SCATTER_LAMBERT):
         # normal + unit sphere, backface culled
@@ -139,14 +153,23 @@ def eval_scatter(tables, kind, param, ray_direction, hit: HitBatch,
             pmath.dot(n, ray_direction), eta)
         refracted, refract_ok = pmath.refract(ray_direction, n, eta)
         reflect_n = pmath.reflect(ray_direction, n)
-        choose_reflect = sampling.bernoulli(u4, reflectance)
+        choose_reflect = sampling.bernoulli(u4, reflectance.detach())
         dielectric_dir = torch.where(
             (choose_reflect | ~refract_ok)[..., None], reflect_n, refracted)
         out = _pick(kind, d.SCATTER_DIELECTRIC, dielectric_dir, out)
         valid = torch.where(kind == d.SCATTER_DIELECTRIC,
                             torch.ones_like(backface), valid)
+        if ior_score:
+            from potato_tpu_torch.diff.surrogate import score_weight
 
-    return ScatterSample(direction=out, valid=valid)
+            # total internal reflection reflects with probability 1: no score
+            chose = choose_reflect | ~refract_ok
+            prob = torch.where(refract_ok, reflectance,
+                               torch.ones_like(reflectance))
+            weight = torch.where(kind == d.SCATTER_DIELECTRIC,
+                                 score_weight(prob, chose), weight)
+
+    return ScatterSample(direction=out, valid=valid, weight=weight)
 
 
 class MaterialOutput(NamedTuple):
@@ -183,7 +206,11 @@ def eval_material(tables, material_id, ray_direction, hit: HitBatch,
     functions. `packed` is `pack_materials(tables)` if the caller kept it.
 
     Material ids are clamped to the table (miss lanes carry arbitrary ids),
-    so an invalid id reads the clamped row."""
+    so an invalid id reads the clamped row.
+
+    With ior_score=True the dielectric Bernoulli's score-function weight
+    (forward value exactly 1) is folded into `absorb`, so the integrator's
+    `throughput *= absorb` picks up the choice-probability gradient."""
     if packed is None:
         packed = pack_materials(tables)
     gm = packed[material_id.long().clamp(0, packed.shape[0] - 1)]  # (B, 12)
@@ -206,4 +233,6 @@ def eval_material(tables, material_id, ray_direction, hit: HitBatch,
         features=features,
         kinds=(getattr(features, "material_emit_kinds", None)
                if features is not None else None))
+    if ior_score:
+        absorb = absorb * scatter.weight[..., None]
     return MaterialOutput(scatter=scatter, absorb=absorb, emit=emit)

@@ -183,6 +183,16 @@ def trace_paths(tables, intersect_fn: Callable, rays: RayBatch, ray_ids,
     The loop stops once every lane has retired: skipped bounces would
     contribute exactly zero. That costs one device-to-host read of
     `active.any()` per bounce.
+
+    The same loop serves the differentiable path (diff/optimize.py): eager
+    autograd records the bounces that ran, and a skipped bounce, whose
+    every lane is masked, would add exactly zero to the radiance and to its
+    gradient. So no fixed-depth variant is needed here.
+
+    ior_score: fold the score-function surrogate weight of the dielectric's
+    reflect/refract Bernoulli into the throughput (diff/surrogate.py), so
+    that d(image)/d(IOR) includes the choice-probability term. Forward
+    images are bit-identical (the weight's value is 1).
     """
     ray_ids = ray_ids.to(torch.int64)
     state = init_state(rays, live=live)

@@ -63,16 +63,24 @@ def scene_digest(scene: CompiledScene) -> int:
 
 
 def make_intersect_fn(scene: CompiledScene, force_plain: bool = False):
-    """Pick the acceleration entry point of the scene.
+    """Pick the acceleration entry point of the scene: flash, dense,
+    cluster or (no accel) brute force.
 
     force_plain runs the flash kernel's plain PyTorch version whatever the
     device; it exists for comparisons (tests and chip_smoke.py)."""
+    from potato_tpu_torch.ops.dense import DenseAccel, intersect_dense
     from potato_tpu_torch.ops.flash import FlashAccel, intersect_flash
+    from potato_tpu_torch.ops.traverse import intersect_clustered
+    from potato_tpu_torch.scene.bvh import ClusterAccel
 
     accel = scene.accel
     if isinstance(accel, FlashAccel):
         return lambda tables, rays: intersect_flash(
             accel, tables, rays, force_plain=force_plain)
+    if isinstance(accel, DenseAccel):
+        return lambda tables, rays: intersect_dense(accel, tables, rays)
+    if isinstance(accel, ClusterAccel):
+        return lambda tables, rays: intersect_clustered(accel, rays)
     return intersect_brute_force
 
 
@@ -175,12 +183,16 @@ def default_driver(scene: CompiledScene) -> str:
     return "compact" if diverges else "chunked"
 
 
-def _resolve(scene, device, driver, width, height, spp, chunk_size):
-    dev = resolve_device(device)
+def check_scene_device(scene: CompiledScene, dev: torch.device) -> None:
+    """Raise unless the scene's tables live on the device asked for."""
     if scene.device.type != dev.type:
         raise ValueError(
-            f"scene tables live on {scene.device} but device={device!r} "
+            f"scene tables live on {scene.device} but device={str(dev)!r} "
             "was requested; build the scene with the same device")
+
+
+def _resolve(scene, device, driver, width, height, spp, chunk_size):
+    check_scene_device(scene, resolve_device(device))
     if driver is None:
         driver = default_driver(scene)
     if driver not in ("chunked", "compact"):

@@ -257,9 +257,11 @@ class SceneBuilder:
         self.mesh_materials.append(int(material))
         return len(self.meshes) - 1
 
-    def build(self, accel: str = "auto", device="cuda"):
+    def build(self, accel: str = "auto", device="cuda",
+              cluster_size: int = 32):
         """Compile to device tables. `device` defaults to the card and
         raises when there is none; pass "cpu" for the plain PyTorch path."""
         from potato_tpu_torch.scene.tables import compile_scene
 
-        return compile_scene(self, accel=accel, device=device)
+        return compile_scene(self, accel=accel, device=device,
+                             cluster_size=cluster_size)

@@ -122,8 +122,9 @@ def all_features() -> SceneFeatures:
 class CompiledScene:
     """A scene ready to render: device tables + static metadata.
 
-    `accel` is None (brute force over all primitives) or a
-    `ops.flash.FlashAccel`.
+    `accel` is None (brute force over all primitives), an
+    `ops.flash.FlashAccel`, an `ops.dense.DenseAccel` or a
+    `scene.bvh.ClusterAccel`.
     """
 
     tables: SceneTables
@@ -171,18 +172,28 @@ def _upload(record, device):
         for a in record))
 
 
+ACCELS = ("flash", "auto", "dense", "cluster", "brute")
+
+
 def compile_scene(desc: "d.SceneBuilder", accel: str = "auto",
-                  device="cuda") -> CompiledScene:
+                  device="cuda", cluster_size: int = 32) -> CompiledScene:
     """Flatten a SceneBuilder into device tables (+ acceleration structure).
 
-    accel: "flash" (= "auto"), the block-queue intersector of ops/flash.py,
-    or "brute", dense tests against every primitive.
+    accel:
+    - "flash" (= "auto"): the block-queue intersector of ops/flash.py and
+      its hand-written kernel;
+    - "dense": all rays x all primitives as matrix products (ops/dense.py);
+    - "cluster": Morton clusters of `cluster_size` primitives, visited
+      front to back per ray (scene/bvh.py, ops/traverse.py);
+    - "brute": dense tests against every primitive, the oracle.
     """
     device = resolve_device(device)
-    if accel not in ("flash", "auto", "brute"):
+    if accel == "pallas":
         raise NotImplementedError(
-            f"accel={accel!r} is not ported yet (ROADMAP.md queue A, "
-            "'Alternative accels'); use 'flash' or 'brute'")
+            "accel='pallas' names the TPU kernel of the JAX package; its "
+            "port is the flash kernel: use 'flash' (ROADMAP.md queue B)")
+    if accel not in ACCELS:
+        raise ValueError(f"unknown accel {accel!r}; one of {ACCELS}")
     mats = desc.materials or [d.Material()]
     texs = desc.textures or [d.Texture.missing()]
 
@@ -291,6 +302,19 @@ def compile_scene(desc: "d.SceneBuilder", accel: str = "auto",
         from potato_tpu_torch.ops.flash import build_flash_accel
 
         accel_struct = build_flash_accel(tables, ns, ntr, device=device)
+    elif accel == "dense":
+        from potato_tpu_torch.ops.dense import build_dense_accel
+
+        accel_struct = build_dense_accel(tables, ns, ntr, device=device)
+    elif accel == "cluster":
+        from potato_tpu_torch.scene.bvh import build_cluster_accel
+
+        accel_struct = build_cluster_accel(
+            s_center if ns else np.zeros((0, 3), np.float32),
+            s_radius if ns else np.zeros((0,), np.float32),
+            s_material if ns else np.zeros((0,), np.int32),
+            {k: (v if ntr else v[:0]) for k, v in tri.items()},
+            cluster_size=cluster_size, device=device)
 
     features = SceneFeatures(
         scatter_kinds=frozenset(m.scatter.kind for m in mats),

@@ -6,6 +6,8 @@ being written), suitable for tailing into any metrics collector.
 Events emitted by the built-in surfaces:
 - renderer.render(): `render_start`, `chunk` (per-chunk path only),
   `checkpoint`, `render_complete` (segments, wall seconds, rays/s)
+- diff.optimize_textures(): `opt_step` (step, loss, seconds),
+  `opt_checkpoint`
 - callers can add their own via `MetricsLogger.log(event, **fields)`.
 
 Enable globally with the POTATO_METRICS env var (a file path, or "-"

@@ -395,10 +395,16 @@ def test_cli_bench_prints_one_json_line(capsys):
 
 
 @pytest.mark.parametrize("accel", ["dense", "cluster"])
-def test_cli_unported_accels_name_the_roadmap(accel):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cli.main(["bench", "--scene", "two_balls", "--accel", accel,
-                  "--device", "cpu"])
+def test_cli_unported_accels_name_the_roadmap(accel, capsys):
+    """ROADMAP item 11 is done: --accel dense|cluster render, and bench
+    counts the same segments as the flash path on the same frame."""
+    args = ["bench", "--scene", "two_balls", "--width", "16", "--height",
+            "8", "--spp", "1", "--max-bounce", "2", "--device", "cpu"]
+    assert cli.main(args + ["--accel", accel]) == 0
+    assert cli.main(args + ["--accel", "flash"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    got, want = (json.loads(line)["segments"] for line in lines[-2:])
+    assert got == want > 0
 
 
 def test_cli_defaults_to_the_card():

@@ -150,6 +150,7 @@ def _shading_case():
     mid = data["material"]
     _shading.update(
         js=js, ts=ts, jm=jm, tm=tm, jt=_np(jt), tt=_np(tt),
+        thit=thit, tu=[T(x) for x in u], tdir=T(data["direction"]),
         jbg=_np(jbg), tbg=_np(tbg),
         scatter_kind=_np(tab.m_scatter_kind)[mid],
         absorb_kind=_np(tab.m_absorb_kind)[mid],
@@ -232,15 +233,20 @@ def test_out_of_range_ids_read_the_clamped_row():
 
 
 def test_ior_score_waits_for_the_differentiable_slice():
+    """The differentiable slice has come: ior_score=True leaves every
+    forward value as it is (the score weight is exactly 1) on every
+    material of the all-kinds scene; tests/test_torch_diff.py holds its
+    gradient."""
     c = _shading_case()
-    ts = c["ts"]
-    z = torch.zeros(4)
-    hit = HitBatch(t=z, position=torch.zeros(4, 3), normal=torch.ones(4, 3),
-                   uv=torch.zeros(4, 2), material=torch.zeros(4).long(),
-                   valid=torch.ones(4, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmaterial.eval_material(ts.tables, hit.material, torch.ones(4, 3),
-                                hit, z, z, z, z, ior_score=True)
+    ts, thit, tu = c["ts"], c["thit"], c["tu"]
+    args = (ts.tables, thit.material, c["tdir"], thit, *tu)
+    plain = tmaterial.eval_material(*args)
+    scored = tmaterial.eval_material(*args, ior_score=True)
+    assert torch.equal(scored.scatter.weight, torch.ones_like(tu[0]))
+    for a, b in ((plain.absorb, scored.absorb), (plain.emit, scored.emit),
+                 (plain.scatter.direction, scored.scatter.direction),
+                 (plain.scatter.valid, scored.scatter.valid)):
+        assert torch.equal(a, b)
 
 
 # ------------------------------------------------------- camera, a bounce
