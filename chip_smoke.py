@@ -41,10 +41,21 @@
    pool driver against the chunked one bit for bit, and times a frame of
    dense, cluster and pool on each of the three scenes (a frame that would
    not fit the run's time is cut in size, and the cut is printed);
-8. prints one JSON line describing every kernel, then a verdict line.
+8. scales out (potato_tpu_torch/parallel/): renders more_balls and the
+   bunny stand-in at 800x600, 4 spp, 8 bounces sharded over 1 process
+   (nccl), 2 and 4 processes (gloo) on this card, each frame bit for bit
+   against the chunked driver's frame in this process (same ray ids), with
+   equal scene digests on every rank, ms/frame, segments/s, each rank's
+   kernel launches and cold start; the sharded SGD step on the earth
+   stand-in at 800x600, 2 spp, 4 bounces on 1 and 2 processes (world 1
+   bit-equal to the step written out in this process, world 2 to float32
+   summation order, the loss falling); and dryrun_multichip(2). The
+   ranks run the functions of chip_smoke_ranks.py, beside this script;
+9. prints one JSON line describing every kernel, then a verdict line.
 
 Any failed gate raises, so the run ends non-zero with no verdict line.
-The script imports only the port (torch, numpy): nothing of JAX.
+The script imports only the port (torch, numpy) and chip_smoke_ranks.py:
+nothing of JAX.
 """
 
 import argparse
@@ -58,6 +69,7 @@ import sys
 import tempfile
 import time
 import warnings
+from functools import partial
 
 import numpy as np
 import torch
@@ -66,11 +78,12 @@ from potato_tpu_torch import cli
 from potato_tpu_torch.core.types import RayBatch
 from potato_tpu_torch.diff import optimize
 from potato_tpu_torch.io import obj, tga
-from potato_tpu_torch.ops import _build
 from potato_tpu_torch.ops import flash
 from potato_tpu_torch.ops.dense import intersect_dense
 from potato_tpu_torch.ops.intersect import intersect_brute_force
 from potato_tpu_torch.ops.traverse import intersect_clustered
+from potato_tpu_torch.parallel import launch, make_ray_group
+from potato_tpu_torch.parallel import make_sharded_render_fn
 from potato_tpu_torch.render import renderer, wavefront
 from potato_tpu_torch.render.camera import generate_rays
 from potato_tpu_torch.render.integrator import init_state, make_bounce_step
@@ -78,6 +91,9 @@ from potato_tpu_torch.scene import examples
 from potato_tpu_torch.scene import description as desc
 from potato_tpu_torch.scene.description import MeshData
 from potato_tpu_torch.utils import metrics as metrics_mod
+
+from chip_smoke_ranks import elapsed_ms, event, sync
+from chip_smoke_ranks import frame_ray_ids, measure_render, measure_train_step
 
 WIDTH, HEIGHT, SPP, BOUNCES = 800, 600, 4, 8
 SEED = 7
@@ -113,23 +129,6 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-# ---- timing: CUDA events (replaced by a host clock only in CPU rehearsals)
-
-def event():
-    ev = torch.cuda.Event(enable_timing=True)
-    ev.record()
-    return ev
-
-
-def elapsed_ms(a, b) -> float:
-    return a.elapsed_time(b)
-
-
-def sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def gate(name, reading, ok, limit):
@@ -1176,6 +1175,233 @@ def phase_pool_and_frames(scenes, glass, alt, full_images):
     return rows, launches
 
 
+# --------------------------------------------------- phase 8: scale-out
+
+# (world, the backend choose_backend must pick on a one-card machine)
+SCALE_WORLDS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
+SCALE_FRAMES = 2
+SPAWN_TIMEOUT_S = 300      # a hung rank fails the run, not its time limit
+# The sharded step's learning rate. The update is lr * grad / n with
+# n = 2.88 M (rays x channels); on the earth stand-in at 800x600, 2 spp a
+# step at 5e5 raises the loss (texels seen by many rays overshoot), so 1e5,
+# a factor 5 inside that edge.
+TRAIN_LR = 1e5
+TRAIN_INIT = 0.5
+
+
+def one_process_rows(scene, frames=SCALE_FRAMES):
+    """The chunked driver's frame in this process: its stacked rows on the
+    host (color, aov_normal, aov_hit; the frame's rows only) and segments,
+    and ms a frame over `frames` frames (CUDA events); and, in turns with
+    it, ms a frame of the sharded render in this process without a
+    process group (world 1), which sets the sharded function's own cost
+    apart from a rank's."""
+    fn, starts = renderer.compile_frame(scene, WIDTH, HEIGHT, SPP, BOUNCES,
+                                        aovs=True, driver="chunked",
+                                        device=scene.device)
+    sharded = make_sharded_render_fn(
+        scene, make_ray_group(scene.device), width=WIDTH, height=HEIGHT,
+        spp=SPP, max_bounce=BOUNCES, seed=SEED)
+    ids = frame_ray_ids(WIDTH, HEIGHT, SPP, scene.device)
+    total = WIDTH * HEIGHT * SPP
+    ms, ms_sharded = [], []
+    for _ in range(frames):
+        for run, into in ((lambda: fn(scene.tables, scene.camera, SEED,
+                                      starts), ms),
+                          (lambda: sharded(scene.tables, scene.camera, ids),
+                           ms_sharded)):
+            a = event()
+            out = run()
+            b = event()
+            sync(scene.device)
+            into.append(elapsed_ms(a, b))
+    out = fn(scene.tables, scene.camera, SEED, starts)
+    rows = {"color": out.color.reshape(-1, 3)[:total].cpu().numpy(),
+            "aov_normal": out.aov_normal.reshape(-1, 3)[:total].cpu().numpy(),
+            "aov_hit": out.aov_hit.reshape(-1)[:total].cpu().numpy()}
+    return rows, int(out.segments.sum()), ms, ms_sharded
+
+
+def say_cold_start(label, spawned, colds):
+    """Each rank's cold start, once: `spawned.startup` and the cold-start
+    readings of each rank function the spawn ran (`colds`)."""
+    for s, *c in zip(spawned.startup, *colds):
+        say(f"[scale-out] {label}: rank {s['rank']} ({s['device']}) cold "
+            f"start: spawn to entry (interpreter, torch, package) "
+            f"{s['spawn_to_entry_s']:.3f} s, init_process_group "
+            f"{s['init_process_group_s']:.3f} s, " + ", ".join(
+                f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+                for part in c for k, v in part.items()))
+
+
+def plain_sgd_step(scene, target, learning_rate):
+    """The training step in one process, without the sharded layer: the
+    chunks' squared errors summed and differentiated
+    (`optimize.chunked_value_and_grad`), then atlas - lr * grad / n
+    (n = rays x channels)."""
+    dev = scene.device
+    total = OPT_W * OPT_H * OPT_SPP
+    ids = torch.arange(total, device=dev)
+    tgt = torch.as_tensor(target, device=dev)
+    atlas = torch.full_like(scene.tables.atlas, TRAIN_INIT)
+    intersect_fn = renderer.make_intersect_fn(scene)
+
+    def ray_loss(leaves, c0, c1):
+        out = renderer.render_chunk(
+            scene.tables._replace(**leaves), scene.camera, ids[c0:c1],
+            intersect_fn=intersect_fn, width=OPT_W, height=OPT_H,
+            spp=OPT_SPP, max_bounce=OPT_BOUNCES, seed=SEED,
+            features=scene.features)
+        return torch.sum((out.color - tgt[c0:c1]) ** 2)
+
+    loss, grads, _ = optimize.chunked_value_and_grad(
+        ray_loss, {"atlas": atlas}, total, CHUNK)
+    n = tgt.numel()
+    return ((atlas - learning_rate * grads["atlas"] / n).cpu().numpy(),
+            float(loss / n))
+
+
+def phase_scale_out(scenes, device):
+    """The sharded render of more_balls and the bunny stand-in at full
+    width on 1 (nccl), 2 and 4 (gloo) processes on this card, bit for bit
+    against the chunked driver's frame in this process; the sharded
+    training step on the earth stand-in at 1 and 2 processes; the dry run
+    on 2. Returns its readings and the kernel launches of the ranks'
+    timed frames and steps."""
+    say(f"[scale-out] card: {gpu_line()}; host cores {os.cpu_count()}")
+    refs = {}
+    for name in ("more_balls", "bunny_standin"):
+        refs[name] = one_process_rows(scenes[name])
+        say(f"[scale-out] {name}: 1 process (this process, in turns): "
+            f"chunked driver ms/frame {[round(m, 2) for m in refs[name][2]]}"
+            f"; sharded render without a process group ms/frame "
+            f"{[round(m, 2) for m in refs[name][3]]}; segments "
+            f"{refs[name][1]}")
+    rows = {"one_process_ms": {n: r[2] for n, r in refs.items()},
+            "one_process_sharded_fn_ms": {n: r[3] for n, r in refs.items()}}
+    launches = 0
+    with tempfile.TemporaryDirectory(prefix="potato_scale_") as assets:
+        write_standin_assets(assets)
+        write_earthmap(assets)
+        render = partial(measure_render, scenes={
+            "more_balls": (examples.more_balls, "flash"),
+            "bunny_standin": (partial(examples.bunny, assets), "flash")},
+            width=WIDTH, height=HEIGHT, spp=SPP, max_bounce=BOUNCES,
+            seed=SEED, frames=SCALE_FRAMES)
+        train = partial(measure_train_step,
+                        make_scene=partial(examples.earth, assets),
+                        width=OPT_W, height=OPT_H, spp=OPT_SPP,
+                        max_bounce=OPT_BOUNCES, seed=SEED, steps=2,
+                        learning_rate=TRAIN_LR, init=TRAIN_INIT)
+        trained = {}
+        for world, backend in SCALE_WORLDS:
+            fns = [render, train] if world <= 2 else [render]
+            t0 = time.perf_counter()
+            got = launch.spawn(partial(launch.in_turn, fns=fns), world,
+                               device=device, timeout_s=SPAWN_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            gate(f"world {world}: backend by the rule", got.backend,
+                 got.backend == backend, backend)
+            say(f"[scale-out] world {world} ({got.backend}, ranks on "
+                f"{sorted(set(s['device'] for s in got.startup))}): spawn "
+                f"to join {wall:.1f} s")
+            res = got.result[0]
+            say_cold_start(f"world {world}", got, [r["cold_start"]
+                                                   for r in got.result])
+            row = rows[f"world {world}"] = {"backend": got.backend}
+            for name, r in res["scenes"].items():
+                want, segments, one_ms, _ = refs[name]
+                off = {f: int((r[f] != want[f]).reshape(len(want[f]), -1)
+                              .any(-1).sum()) for f in want}
+                gate(f"world {world}, {name}: sharded rows (color, "
+                     "aov_normal, aov_hit) and segments bit-equal to the "
+                     "1-process frame", f"rows off {off}, segments "
+                     f"{r['segments']} / {segments}",
+                     not any(off.values()) and r["segments"] == segments,
+                     "0 off, equal")
+                digest = renderer.scene_digest(scenes[name])
+                gate(f"world {world}, {name}: scene digest of every rank "
+                     "equals this process's", f"{len(set(r['digests']))} "
+                     f"distinct over {world} ranks",
+                     set(r["digests"]) == {digest}, "1, this process's")
+                gate(f"world {world}, {name}: kernel launched on every rank",
+                     r["launches"], min(r["launches"]) > 0, "> 0 each")
+                launches += sum(r["launches"])
+                sps = [segments / (m / 1e3) for m in r["frame_ms"]]
+                say(f"[scale-out] world {world}, {name}: ms/frame "
+                    f"{[round(m, 2) for m in r['frame_ms']]} (rank 0's "
+                    "device clock, barrier to barrier), host s/frame "
+                    f"{[round(h, 3) for h in r['host_s']]}, segments/s "
+                    f"{[round(v) for v in sps]}; kernel launches by rank "
+                    f"over {SCALE_FRAMES} frames {r['launches']} (sum "
+                    f"{sum(r['launches'])}); 1 process: ms/frame "
+                    f"{[round(m, 2) for m in one_ms]}")
+                row[name] = {"frame_ms": r["frame_ms"], "host_s": r["host_s"],
+                             "segments_per_s": sps,
+                             "launches_by_rank": r["launches"]}
+            row["cold_start"] = [dict(s, **c) for s, c in
+                                 zip(got.startup, res["cold_start"])]
+            if world <= 2:
+                trained[world] = got.result[1]
+        t0 = time.perf_counter()
+        dry = launch.dryrun_multichip(2, device=device, assets_dir=assets,
+                                      timeout_s=SPAWN_TIMEOUT_S)
+        say(f"[scale-out] dryrun_multichip(2) in "
+            f"{time.perf_counter() - t0:.1f} s: {dry}")
+        earth = examples.earth(assets).build(accel="flash", device=device)
+    rows["train"] = check_sharded_steps(earth, trained)
+    for world, t in trained.items():
+        launches += sum(t["launches"])
+    rows["dryrun_multichip_2"] = dry
+    return rows, launches
+
+
+def check_sharded_steps(earth, trained):
+    """Gates and readings of the sharded training step, worlds 1 and 2."""
+    one, two = trained[1], trained[2]
+    plain_atlas, plain_loss = plain_sgd_step(earth, one["target"], TRAIN_LR)
+    a1 = one["atlas_after_first_step"]
+    gate("train step, world 1: atlas' and loss bit-equal to the plain "
+         "single-process SGD step", f"{int((a1 != plain_atlas).sum())} "
+         f"texels differ, loss {one['losses'][0]!r} / {plain_loss!r}",
+         np.array_equal(a1, plain_atlas) and one["losses"][0] == plain_loss,
+         "0, equal")
+    gate("train step: the target frame of world 2 equals world 1's",
+         np.array_equal(two["target"], one["target"]),
+         np.array_equal(two["target"], one["target"]), "True")
+    d1 = a1.astype(np.float64) - TRAIN_INIT
+    d2 = two["atlas_after_first_step"].astype(np.float64) - TRAIN_INIT
+    rel_update = float(np.linalg.norm(d2 - d1) / np.linalg.norm(d1))
+    rel_atlas = float(np.linalg.norm(d2 - d1)
+                      / np.linalg.norm(a1.astype(np.float64)))
+    # float32 summation order: world 2 sums two shares' chunk gradients
+    # where world 1 sums one share's, and the ranks' sums once more
+    gate("train step: world 2 against world 1 after one step, relative L2 "
+         "of the update atlas' - init", f"{rel_update:.3e} (of atlas' "
+         f"itself {rel_atlas:.3e}; |update| {np.linalg.norm(d1):.4g})",
+         rel_update <= 1e-5 and np.linalg.norm(d1) > 0, "<= 1e-5, > 0")
+    for world, t in trained.items():
+        gate(f"train step, world {world}: loss falls over 2 steps at "
+             f"learning rate {TRAIN_LR:g}", t["losses"],
+             t["losses"][1] < t["losses"][0], "falls")
+        gate(f"train step, world {world}: scene digest equal on every rank",
+             len(set(t["digests"])), len(set(t["digests"])) == 1, "1")
+        say(f"[scale-out] train step, world {world}, earth stand-in "
+            f"{OPT_W}x{OPT_H}, {OPT_SPP} spp, {OPT_BOUNCES} bounces, SGD at "
+            f"{TRAIN_LR:g} from {TRAIN_INIT}: losses {t['losses']}; s/step "
+            f"{[round(s, 4) for s in t['step_s']]} (host clock, barrier to "
+            f"barrier); rank 0 forward ms "
+            f"{[round(m, 1) for m in t['forward_ms']]}, backward ms "
+            f"{[round(m, 1) for m in t['backward_ms']]}, all-reduce ms "
+            f"{[round(m, 2) for m in t['all_reduce_ms']]}; kernel launches "
+            f"by rank over 2 steps {t['launches']}")
+    return {w: {k: t[k] for k in ("losses", "step_s", "forward_ms",
+                                  "backward_ms", "all_reduce_ms", "launches")}
+            for w, t in trained.items()} | {
+        "rel_l2_update_world2_vs_world1": rel_update,
+        "learning_rate": TRAIN_LR}
+
+
 def ptxas_summary(log: str) -> dict:
     """Over the kernels of the build (one per slice count): the most
     registers and static shared memory, and all spill bytes, from what
@@ -1213,8 +1439,7 @@ def main(argv=None) -> int:
         f"python {sys.version.split()[0]}, device "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    _build.build_library("flash_intersect")
-    info = _build.build_info["flash_intersect"]
+    info = flash.load_kernel_library()
     say(f"[build] {KERNEL_SOURCE} -> {info['path']} in "
         f"{info['seconds']:.1f} s")
     for line in info["log"].splitlines():
@@ -1296,6 +1521,14 @@ def main(argv=None) -> int:
     say(f"[accels] phase in {time.perf_counter() - t0:.1f} s, "
         f"{launches_pool} kernel launches")
 
+    # phase 8: scale-out; the launches of the ranks' timed frames and steps
+    t0 = time.perf_counter()
+    scale_rows, launches_sharded = phase_scale_out(scenes, device)
+    gate("kernel launches on the sharded path", launches_sharded,
+         launches_sharded > 0, "> 0")
+    say(f"[scale-out] phase in {time.perf_counter() - t0:.1f} s, "
+        f"{launches_sharded} kernel launches in the ranks")
+
     rows = [r for res in results.values() for r in res["rows"]]
     bound_ms = float(np.mean([r["bound"]["ms"] for r in rows]))
     by_ops = float(np.mean([r["bound"]["ops_ms"] for r in rows])) >= \
@@ -1306,14 +1539,15 @@ def main(argv=None) -> int:
         "source": KERNEL_SOURCE,
         "replaces": REPLACES,
         "launches": launches + launches_default + launches_diff
-        + launches_pool,
+        + launches_pool + launches_sharded,
         "launches_by_path": {
             "main path (chunked, forced)": launches,
             "default driver of each scene, CLI, checkpoint":
                 launches_default,
             "differentiable path (optimize_textures, earth and more_balls)":
                 launches_diff,
-            "pool driver, one frame of each scene": launches_pool},
+            "pool driver, one frame of each scene": launches_pool,
+            "sharded": launches_sharded},
         "max_abs_err": max_abs_err,
         "ms": float(np.mean([r["ms"] for r in rows])),
         "plain_ms": float(np.mean([r["plain_ms"] for r in rows])),
@@ -1355,6 +1589,7 @@ def main(argv=None) -> int:
     }]}
     kernels["kernels"][0]["differentiable_path"] = diff_rows
     kernels["kernels"][0]["accelerators_and_pool"] = accel_rows
+    kernels["kernels"][0]["scale_out"] = scale_rows
     per_scene = kernels["kernels"][0]["per_scene"]
     for name, by_driver in driver_rows.items():
         per_scene.setdefault(name, {})["drivers"] = {

@@ -49,6 +49,41 @@ DIFFERENTIABLE_FIELDS = (
 )
 
 
+def chunked_value_and_grad(chunk_loss: Callable,
+                           params: Dict[str, torch.Tensor], n: int,
+                           chunk: int, stamp: Optional[Callable] = None):
+    """(loss, {name: gradient}, chunks) of the sum over the chunks
+    [c, min(c + chunk, n)) of `chunk_loss(leaves, c0, c1)`, a scalar, where
+    `leaves` are `params` detached as autograd leaves. Each chunk renders,
+    is backpropagated and has its graph freed before the next renders, so
+    the memory is one chunk's; the sum of the chunks' gradients is the
+    whole sum's up to float32 summation order.
+
+    stamp: optional callable, called with "forward" before each chunk's
+    loss, "backward" before its backward pass and "done" after it
+    (chip_smoke.py records a CUDA event at each)."""
+    mark = stamp or (lambda label: None)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    grads = {k: torch.zeros_like(v) for k, v in leaves.items()}
+    loss = torch.zeros((), dtype=torch.float32,
+                       device=next(iter(leaves.values())).device)
+    chunks = 0
+    for c in range(0, n, chunk):
+        mark("forward")
+        part = chunk_loss(leaves, c, min(c + chunk, n))
+        mark("backward")
+        if part.requires_grad:      # else no ray of the chunk saw a leaf
+            got = torch.autograd.grad(part, list(leaves.values()),
+                                      allow_unused=True)
+            for k, g in zip(leaves, got):
+                if g is not None:
+                    grads[k] += g
+        loss += part.detach()
+        mark("done")
+        chunks += 1
+    return loss, grads, chunks
+
+
 class RenderLoss:
     """loss(params, ray_ids, target) -> scalar MSE, where `params` is a
     dict {field_name: tensor} substituted into the scene tables.
@@ -88,35 +123,20 @@ class RenderLoss:
 
     def value_and_grad(self, params: Dict[str, torch.Tensor], ray_ids,
                        target, stamp: Optional[Callable] = None):
-        """(loss, {field: gradient}), the frame taken chunk by chunk.
-
-        stamp: optional callable, called with "forward" before each chunk
-        renders, "backward" before its backward pass and "done" after it
-        (chip_smoke.py records a CUDA event at each)."""
-        mark = stamp or (lambda label: None)
+        """(loss, {field: gradient}), the frame taken chunk by chunk of
+        whole pixels (`chunked_value_and_grad`, which calls `stamp`)."""
         ids, tgt = self._inputs(ray_ids, target)
-        leaves = {k: torch.as_tensor(v, device=self.scene.device).detach()
-                  .requires_grad_(True) for k, v in params.items()}
-        grads = {k: torch.zeros_like(v) for k, v in leaves.items()}
-        loss = torch.zeros((), dtype=torch.float32, device=self.scene.device)
         scale = 1.0 / (tgt.shape[0] * 3)
-        per = self.chunk_rays // self.spp
-        self.chunks = 0
-        for p0 in range(0, tgt.shape[0], per):
-            mark("forward")
-            pixels = self._pixels(leaves, ids[p0 * self.spp:(p0 + per)
-                                              * self.spp])
-            part = torch.sum((pixels - tgt[p0:p0 + per]) ** 2) * scale
-            mark("backward")
-            if part.requires_grad:
-                got = torch.autograd.grad(part, list(leaves.values()),
-                                          allow_unused=True)
-                for k, g in zip(leaves, got):
-                    if g is not None:
-                        grads[k] += g
-            loss = loss + part.detach()
-            mark("done")
-            self.chunks += 1
+        spp = self.spp
+
+        def pixel_loss(leaves, p0, p1):
+            pixels = self._pixels(leaves, ids[p0 * spp:p1 * spp])
+            return torch.sum((pixels - tgt[p0:p1]) ** 2) * scale
+
+        leaves = {k: torch.as_tensor(v, device=self.scene.device)
+                  for k, v in params.items()}
+        loss, grads, self.chunks = chunked_value_and_grad(
+            pixel_loss, leaves, tgt.shape[0], self.chunk_rays // spp, stamp)
         return loss, grads
 
 

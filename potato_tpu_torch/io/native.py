@@ -1,6 +1,7 @@
 """ctypes bindings to the native C++ host library (native/potato_native.cpp).
 
-Fast paths for OBJ parsing and TGA decode/encode. Loading is lazy and
+Fast paths for OBJ parsing, TGA decode/encode and the Morton order of a
+point set. Loading is lazy and
 optional: if `native/libpotato_native.so` is missing, the first call tries
 `make -C native`; if there is still no library, every function here
 returns None and the callers take their numpy paths, which stay the
@@ -68,6 +69,9 @@ def get_lib() -> Optional[ctypes.CDLL]:
     lib.tga_encode.restype = None
     lib.tga_encode.argtypes = [ctypes.c_void_p, ctypes.c_int32,
                                ctypes.c_int32, ctypes.c_void_p]
+    lib.morton_argsort.restype = None
+    lib.morton_argsort.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                   ctypes.c_void_p]
     _lib = lib
     return _lib
 
@@ -128,3 +132,18 @@ def tga_encode(rgba: np.ndarray) -> Optional[bytes]:
     out = np.empty(18 + w * h * 4, np.uint8)
     lib.tga_encode(rgba.ctypes.data, w, h, out.ctypes.data)
     return out.tobytes()
+
+
+def morton_argsort(points: np.ndarray) -> Optional[np.ndarray]:
+    """(n,) uint32 order of the (n, 3) points along 30-bit Morton codes over
+    their bounding box (a stable sort: equal codes keep their order), or
+    None without the library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    pts = np.ascontiguousarray(points, np.float32)
+    if pts.ndim != 2 or pts.shape[1] != 3:
+        raise ValueError(f"expected (n, 3) points, got {pts.shape}")
+    order = np.empty(pts.shape[0], np.uint32)
+    lib.morton_argsort(pts.ctypes.data, pts.shape[0], order.ctypes.data)
+    return order

@@ -838,6 +838,17 @@ def _library():
     return _lib
 
 
+def load_kernel_library() -> dict:
+    """Load the kernel library now, building it first if its current
+    source has not been built; returns how it was had: {"path",
+    "seconds" (nvcc's, 0.0 when it was found built), "log" (nvcc's
+    output)}."""
+    from potato_tpu_torch.ops._build import build_info
+
+    _library()
+    return build_info["flash_intersect"]
+
+
 def _check(t, name, dtype, shape, device):
     if not isinstance(t, torch.Tensor) or t.device != device:
         raise ValueError(f"{name}: expected a tensor on {device}")
