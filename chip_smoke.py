@@ -51,7 +51,13 @@
    bit-equal to the step written out in this process, world 2 to float32
    summation order, the loss falling); and dryrun_multichip(2). The
    ranks run the functions of chip_smoke_ranks.py, beside this script;
-9. prints one JSON line describing every kernel, then a verdict line.
+9. runs each profiler of tools/ (tools/torch_*.py: chunk size, depth,
+   block size, visit statistics, scaling with a trace of each rank, the
+   per-scene matrix) in a quick form on this card, with at least one cell
+   of each at the full frame, every gate of theirs enforced; the full
+   reports go to chiprun_out/profilers/ and the traces to
+   chiprun_out/traces/;
+10. prints one JSON line describing every kernel, then a verdict line.
 
 Any failed gate raises, so the run ends non-zero with no verdict line.
 The script imports only the port (torch, numpy) and chip_smoke_ranks.py:
@@ -1189,33 +1195,35 @@ TRAIN_LR = 1e5
 TRAIN_INIT = 0.5
 
 
-def one_process_rows(scene, frames=SCALE_FRAMES):
+def one_process_rows(scene, frames=SCALE_FRAMES, *, width=WIDTH,
+                     height=HEIGHT, spp=SPP, max_bounce=BOUNCES, seed=SEED):
     """The chunked driver's frame in this process: its stacked rows on the
     host (color, aov_normal, aov_hit; the frame's rows only) and segments,
     and ms a frame over `frames` frames (CUDA events); and, in turns with
     it, ms a frame of the sharded render in this process without a
     process group (world 1), which sets the sharded function's own cost
     apart from a rank's."""
-    fn, starts = renderer.compile_frame(scene, WIDTH, HEIGHT, SPP, BOUNCES,
-                                        aovs=True, driver="chunked",
-                                        device=scene.device)
+    dev = scene.device
+    fn, starts = renderer.compile_frame(scene, width, height, spp,
+                                        max_bounce, aovs=True,
+                                        driver="chunked", device=dev)
     sharded = make_sharded_render_fn(
-        scene, make_ray_group(scene.device), width=WIDTH, height=HEIGHT,
-        spp=SPP, max_bounce=BOUNCES, seed=SEED)
-    ids = frame_ray_ids(WIDTH, HEIGHT, SPP, scene.device)
-    total = WIDTH * HEIGHT * SPP
+        scene, make_ray_group(dev), width=width, height=height, spp=spp,
+        max_bounce=max_bounce, seed=seed)
+    ids = frame_ray_ids(width, height, spp, dev)
+    total = width * height * spp
     ms, ms_sharded = [], []
     for _ in range(frames):
-        for run, into in ((lambda: fn(scene.tables, scene.camera, SEED,
+        for run, into in ((lambda: fn(scene.tables, scene.camera, seed,
                                       starts), ms),
                           (lambda: sharded(scene.tables, scene.camera, ids),
                            ms_sharded)):
-            a = event()
+            a = event(dev)
             out = run()
-            b = event()
-            sync(scene.device)
+            b = event(dev)
+            sync(dev)
             into.append(elapsed_ms(a, b))
-    out = fn(scene.tables, scene.camera, SEED, starts)
+    out = fn(scene.tables, scene.camera, seed, starts)
     rows = {"color": out.color.reshape(-1, 3)[:total].cpu().numpy(),
             "aov_normal": out.aov_normal.reshape(-1, 3)[:total].cpu().numpy(),
             "aov_hit": out.aov_hit.reshape(-1)[:total].cpu().numpy()}
@@ -1402,6 +1410,119 @@ def check_sharded_steps(earth, trained):
         "learning_rate": TRAIN_LR}
 
 
+# --------------------------------------------------- phase 9: the profilers
+
+PROFILER_REPORTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "chiprun_out", "profilers")
+
+
+def profiler_quick_forms(device):
+    """(name, run) of each profiler of tools/ (tools/torch_*.py) in a quick
+    form: at least one cell of each at the full frame (800x600, 4 spp, 8
+    bounces; blocks and groups on a 2^15-ray chunk of it, whose bounce-1
+    rays of more_balls start on the kernel's spheres)."""
+    from tools import torch_perf_scenes, torch_profile_blocksize
+    from tools import torch_profile_chunksize, torch_profile_depth
+    from tools import torch_scaling_harness, torch_stats_clusters
+
+    size = dict(width=WIDTH, height=HEIGHT, spp=SPP, seed=SEED)
+    full = dict(size, max_bounce=BOUNCES)
+    return [
+        ("torch_profile_chunksize", partial(
+            torch_profile_chunksize.run, ("bunny",), (CHUNK, 2 * CHUNK),
+            ("compact",), frames=1, device=device, **full)),
+        ("torch_profile_depth", partial(
+            torch_profile_depth.run, ("bunny",), (1, BOUNCES), frames=1,
+            device=device, **size)),
+        ("torch_profile_blocksize", partial(
+            torch_profile_blocksize.run, ("more_balls", "bunny"), (256, 512),
+            frames=0, device=device, **full)),
+        ("torch_stats_clusters", partial(
+            torch_stats_clusters.run, ("more_balls", "bunny"), (64, 256),
+            (16,), (512,), device=device, **size)),
+        ("torch_scaling_harness", partial(
+            torch_scaling_harness.run, (1, 2), ("bunny",), frames=1,
+            trace=True, device=device, **full)),
+        ("torch_perf_scenes", partial(
+            torch_perf_scenes.run, ("three_balls", "more_balls_optimized"),
+            frames=1, device=device, **full)),
+    ]
+
+
+def say_profiler(name, rep):
+    """A few lines of a profiler's readings."""
+    if name in ("torch_profile_chunksize", "torch_profile_depth"):
+        for c in rep["cells"]:
+            say(f"[profilers] {name}: {c['scene']}, {c['driver']}, chunk "
+                f"{c['chunk_size']}, {c['max_bounce']} bounces: ms/frame "
+                f"{[round(m, 2) for m in c['frame_ms']]}, launches/frame "
+                f"{c['launches_per_frame']}, passes a bounce "
+                f"{c['passes_per_bounce']}, peak MiB {c['peak_mib']}")
+    elif name == "torch_profile_blocksize":
+        for c in rep["cells"]:
+            say(f"[profilers] {name}: {c['rays']}, R {c['block']}: queue "
+                f"build {c['queue_build_ms']:.3f} ms, kernel "
+                f"{c['kernel_ms']:.4f} ms, visits a block "
+                f"{json.dumps(c['visits_per_block'])}")
+    elif name == "torch_stats_clusters":
+        for c in rep["groups"]:
+            say(f"[profilers] {name}: {c['rays']}, group {c['group']}: rows "
+                f"a CTA mean {c['rows_per_cta_mean']:.1f}, max "
+                f"{c['rows_per_cta_max']:.0f} (max over mean "
+                f"{c['max_over_mean']}), kernel {c['kernel_ms']:.4f} ms")
+    elif name == "torch_scaling_harness":
+        for world, row in rep["worlds"].items():
+            for scene, r in row.items():
+                if not isinstance(r, dict) or "frame_ms" not in r:
+                    continue
+                traces = r["traces"] or ()
+                busy = [round(t["device_busy_share"] or 0.0, 4)
+                        for t in traces]
+                ms = [round(m, 2) for m in r["frame_ms"]]
+                say(f"[profilers] {name}: world {world} ({row['backend']}),"
+                    f" {scene}: ms/frame {ms}"
+                    f", efficiency {r['efficiency']:.3f}; traced frame by "
+                    f"rank: device busy share {busy}, host syncs "
+                    f"{[t['host_syncs'] for t in traces]}")
+    elif name == "torch_perf_scenes":
+        for scene, r in rep["scenes"].items():
+            say(f"[profilers] {name}: {scene} ({r['driver']}, sphere path "
+                f"{r['sphere_path']}): segments/s {r['segments_per_s']:.0f}, "
+                f"ms/frame {[round(m, 2) for m in r['frame_ms']]}")
+
+
+def phase_profilers(device):
+    """Each profiler's quick form on this card, every gate of its report
+    enforced; the full reports are written to chiprun_out/profilers/.
+    Returns per profiler its seconds, gates held and launches, and the
+    kernel launches of the frames the profilers rendered (not those that
+    hold the kernel against its plain version or time it alone)."""
+    os.makedirs(PROFILER_REPORTS, exist_ok=True)
+    rows, launches = {}, 0
+    for name, run in profiler_quick_forms(device):
+        t0 = time.perf_counter()
+        rep = run()
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(PROFILER_REPORTS, name + ".json"), "w") as f:
+            json.dump(rep, f)
+        gate(f"{name}: ran on the card", rep["device"]["name"],
+             rep["device"]["type"] == "cuda",
+             torch.cuda.get_device_name(0))
+        for g in rep["gates"]:
+            gate(f"{name}: {g['name']}", g["reading"], g["ok"], g["limit"])
+        say_profiler(name, rep)
+        say(f"[profilers] {name}: {seconds:.1f} s, {len(rep['gates'])} "
+            f"gates held, {rep['launches']} kernel launches in its frames")
+        launches += rep["launches"]
+        rows[name] = {"seconds": seconds, "gates": len(rep["gates"]),
+                      "launches": rep["launches"]}
+    for name in ("torch_profile_chunksize", "torch_profile_depth",
+                 "torch_scaling_harness", "torch_perf_scenes"):
+        gate(f"{name}: kernel launched in its frames",
+             rows[name]["launches"], rows[name]["launches"] > 0, "> 0")
+    return rows, launches
+
+
 def ptxas_summary(log: str) -> dict:
     """Over the kernels of the build (one per slice count): the most
     registers and static shared memory, and all spill bytes, from what
@@ -1529,6 +1650,14 @@ def main(argv=None) -> int:
     say(f"[scale-out] phase in {time.perf_counter() - t0:.1f} s, "
         f"{launches_sharded} kernel launches in the ranks")
 
+    # phase 9: the profilers (tools/torch_*.py), quick forms; the launches
+    # of their frames, this process's and the ranks'
+    t0 = time.perf_counter()
+    flash.flash_intersect_kernel.launches = 0
+    profiler_rows, launches_profilers = phase_profilers(device)
+    say(f"[profilers] phase in {time.perf_counter() - t0:.1f} s, "
+        f"{launches_profilers} kernel launches in their frames")
+
     rows = [r for res in results.values() for r in res["rows"]]
     bound_ms = float(np.mean([r["bound"]["ms"] for r in rows]))
     by_ops = float(np.mean([r["bound"]["ops_ms"] for r in rows])) >= \
@@ -1539,7 +1668,7 @@ def main(argv=None) -> int:
         "source": KERNEL_SOURCE,
         "replaces": REPLACES,
         "launches": launches + launches_default + launches_diff
-        + launches_pool + launches_sharded,
+        + launches_pool + launches_sharded + launches_profilers,
         "launches_by_path": {
             "main path (chunked, forced)": launches,
             "default driver of each scene, CLI, checkpoint":
@@ -1547,7 +1676,8 @@ def main(argv=None) -> int:
             "differentiable path (optimize_textures, earth and more_balls)":
                 launches_diff,
             "pool driver, one frame of each scene": launches_pool,
-            "sharded": launches_sharded},
+            "sharded": launches_sharded,
+            "profilers (tools/torch_*.py, quick forms)": launches_profilers},
         "max_abs_err": max_abs_err,
         "ms": float(np.mean([r["ms"] for r in rows])),
         "plain_ms": float(np.mean([r["plain_ms"] for r in rows])),
@@ -1590,6 +1720,7 @@ def main(argv=None) -> int:
     kernels["kernels"][0]["differentiable_path"] = diff_rows
     kernels["kernels"][0]["accelerators_and_pool"] = accel_rows
     kernels["kernels"][0]["scale_out"] = scale_rows
+    kernels["kernels"][0]["profilers"] = profiler_rows
     per_scene = kernels["kernels"][0]["per_scene"]
     for name, by_driver in driver_rows.items():
         per_scene.setdefault(name, {})["drivers"] = {

@@ -20,14 +20,26 @@ def norm_squared(a: torch.Tensor) -> torch.Tensor:
     return torch.sum(a * a, dim=-1)
 
 
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Square root, correctly rounded on every device.
+
+    torch's float32 square root on the CPU is not correctly rounded on
+    every machine: on some, about one result in five is one ulp off,
+    where XLA's and CUDA's are exact. Taken in float64 and rounded once
+    to float32, the root is exact."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
 def normalize(a: torch.Tensor) -> torch.Tensor:
     """Normalize over the last axis."""
-    return a / torch.sqrt(norm_squared(a))[..., None]
+    return a / sqrt(norm_squared(a))[..., None]
 
 
 def safe_normalize(a: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     n2 = torch.clamp(norm_squared(a), min=eps)
-    return a / torch.sqrt(n2)[..., None]
+    return a / sqrt(n2)[..., None]
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -52,7 +64,7 @@ def refract(incident: torch.Tensor, normal: torch.Tensor, eta):
                           device=incident.device).expand(cos_theta.shape)
     k = 1.0 - eta * eta * (1.0 - cos_theta * cos_theta)
     valid = k > 0.0
-    sqrt_k = torch.sqrt(torch.where(valid, k, torch.ones_like(k)))
+    sqrt_k = sqrt(torch.where(valid, k, torch.ones_like(k)))
     refr = (eta[..., None] * incident
             - (eta * cos_theta + sqrt_k)[..., None] * normal)
     return torch.where(valid[..., None], refr, incident), valid
@@ -78,7 +90,7 @@ def equirect_uv(direction: torch.Tensor) -> torch.Tensor:
     xs = torch.where(at_pole, torch.ones_like(x), x)
     zs = torch.where(at_pole, torch.zeros_like(z), z)
     u = 0.5 - torch.atan2(zs, xs) / (2.0 * math.pi)
-    v = torch.atan2(y, torch.sqrt(r2 + 1e-12)) / math.pi + 0.5
+    v = torch.atan2(y, sqrt(r2 + 1e-12)) / math.pi + 0.5
     return torch.stack([u, v], dim=-1)
 
 

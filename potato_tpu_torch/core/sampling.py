@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from potato_tpu_torch.core.math import sqrt
+
 
 def closed_range(u, lo, hi):
     """Uniform in [lo, hi]."""
@@ -19,7 +21,7 @@ def closed_range(u, lo, hi):
 
 def unit_disk(u1, u2):
     """Uniform inside the unit disk via the polar map."""
-    r = torch.sqrt(u1)
+    r = sqrt(u1)
     theta = (2.0 * math.pi) * u2
     return torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
 
@@ -30,9 +32,9 @@ def unit_sphere(u1, u2):
     sin(theta) is derived from the cosine as sign(u2 < 1/2) * sqrt(1 - c^2)
     rather than by a second transcendental; same distribution."""
     z = 1.0 - 2.0 * u1
-    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    r = sqrt(torch.clamp(1.0 - z * z, min=0.0))
     c = torch.cos((2.0 * math.pi) * u2)
-    s = torch.sqrt(torch.clamp(1.0 - c * c, min=0.0))
+    s = sqrt(torch.clamp(1.0 - c * c, min=0.0))
     s = torch.where(u2 < 0.5, s, -s)
     return torch.stack([r * c, r * s, z], dim=-1)
 

@@ -24,6 +24,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from potato_tpu_torch.core import math as pmath
 from potato_tpu_torch.core.types import resolve_device
 from potato_tpu_torch.render.renderer import (
     DEFAULT_CHUNK,
@@ -248,7 +249,7 @@ def optimize_textures(scene: CompiledScene, target: np.ndarray, *,
             mhat = new_m[k] / c1
             vhat = new_v[k] / c2
             new_p[k] = params[k] - learning_rate * mhat / (
-                torch.sqrt(vhat) + eps)
+                pmath.sqrt(vhat) + eps)
         return new_p, new_m, new_v, loss
 
     def save(step):

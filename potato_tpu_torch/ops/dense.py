@@ -31,6 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from potato_tpu_torch.core import math as pmath
 from potato_tpu_torch.core.types import BIG, SMOL, HitBatch, RayBatch
 from potato_tpu_torch.ops.intersect import (
     sphere_hit_fields,
@@ -183,8 +184,8 @@ def _intersect_dense_block(accel: DenseAccel, tables,
     c_coef = o2 + sout[..., 1]
     delta = half_b * half_b - a_coef * c_coef
     sph_ok = delta > 0.0
-    sqrt_delta = torch.sqrt(torch.where(sph_ok, delta,
-                                        torch.ones_like(delta)))
+    sqrt_delta = pmath.sqrt(torch.where(sph_ok, delta,
+                                         torch.ones_like(delta)))
     inv_a = 1.0 / a_coef
     t0 = (-half_b - sqrt_delta) * inv_a
     t1 = (-half_b + sqrt_delta) * inv_a

@@ -634,8 +634,8 @@ def _sphere_keys(o, d, t_min, t_max, tile):
     c_coef = o2 - 2.0 * (ox * cx + oy * cy + oz * cz) + cc
     delta = half_b * half_b - a_coef * c_coef
     sph_ok = (delta > 0.0) & (ok > 0.5)
-    sqrt_delta = torch.sqrt(torch.where(sph_ok, delta,
-                                        torch.ones_like(delta)))
+    sqrt_delta = pmath.sqrt(torch.where(sph_ok, delta,
+                                         torch.ones_like(delta)))
     tt0 = (-half_b - sqrt_delta) * inv_a
     tt1 = (-half_b + sqrt_delta) * inv_a
     t0_ok = (tt0 >= t_min) & (tt0 <= t_max)

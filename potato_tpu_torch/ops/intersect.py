@@ -24,8 +24,8 @@ def sphere_hit_t(center, radius, origin, direction, t_min, t_max):
     delta = half_b * half_b - a * c
     sphere_ok = delta > 0.0
 
-    sqrt_delta = torch.sqrt(torch.where(sphere_ok, delta,
-                                        torch.ones_like(delta)))
+    sqrt_delta = pmath.sqrt(torch.where(sphere_ok, delta,
+                                         torch.ones_like(delta)))
     inv_a = 1.0 / a
     t0 = (-half_b - sqrt_delta) * inv_a
     t1 = (-half_b + sqrt_delta) * inv_a

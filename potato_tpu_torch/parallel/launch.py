@@ -54,12 +54,15 @@ def spawn(fn: Callable, world: int, *args, device="cuda",
     terminated); a run longer than `timeout_s` is terminated and raises
     TimeoutError, and so does a collective that waits that long."""
     resolve_device(device)
+    # CPU ranks share this process's threads: one pool each of its share,
+    # not `world` pools of every core spinning against each other
+    threads = max(1, torch.get_num_threads() // world)
     with tempfile.TemporaryDirectory(prefix="potato_spawn_") as tmp:
         out = os.path.join(tmp, "rank0.pkl")
         ctx = mp.start_processes(
             _rank_main, nprocs=world, join=False, start_method="spawn",
             args=(fn, args, world, "file://" + os.path.join(tmp, "rdzv"),
-                  device, timeout_s, out, time.time()))
+                  device, timeout_s, out, time.time(), threads))
         deadline = time.monotonic() + timeout_s
         while not ctx.join(timeout=0.5):    # raises if a rank failed
             if time.monotonic() > deadline:
@@ -74,13 +77,11 @@ def spawn(fn: Callable, world: int, *args, device="cuda",
 
 
 def _rank_main(rank, fn, args, world, init_method, device, timeout_s, out,
-               spawned_at):
+               spawned_at, threads):
     entered = time.time()
     os.environ["LOCAL_RANK"] = str(rank)
     if torch.device(device).type == "cpu":
-        # the ranks share the host's cores: one thread pool each of its
-        # share, not `world` pools of every core spinning against each other
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        torch.set_num_threads(threads)
     backend = initialize(init_method, world_size=world, rank=rank,
                          device=device, local_world_size=world,
                          timeout_s=timeout_s)

@@ -319,6 +319,13 @@ def test_no_module_of_the_port_imports_jax():
              for f in ("chip_smoke.py", "chip_smoke_ranks.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "potato_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    # the port's profilers, which import no reference tool either
+    tools = os.path.join(ROOT, "tools")
+    ported = sorted(n for n in os.listdir(tools)
+                    if n.startswith("torch_") and n.endswith(".py"))
+    reference = {n[:-3] for n in os.listdir(tools)
+                 if n.endswith(".py") and n not in ported}
+    files += [os.path.join(tools, n) for n in ported]
     bad = []
     for path in files:
         with open(path) as f:
@@ -327,6 +334,11 @@ def test_no_module_of_the_port_imports_jax():
             mods = [a.name for a in node.names] if isinstance(
                 node, ast.Import) else [node.module or ""] if isinstance(
                 node, ast.ImportFrom) else []
+            if isinstance(node, ast.ImportFrom) and node.module == "tools":
+                mods = ["tools." + a.name for a in node.names]
             bad += [(path, m) for m in mods
-                    if m.split(".")[0] in ("jax", "jaxlib", "potato_tpu")]
-    assert len(files) > 30 and not bad, bad
+                    if m.split(".")[0] in ("jax", "jaxlib", "potato_tpu")
+                    or m in reference
+                    or m.split(".")[-1] in reference and m.startswith(
+                        "tools.")]
+    assert len(ported) >= 6 and len(files) > 36 and not bad, bad
