@@ -17,10 +17,6 @@ import json
 import sys
 import time
 
-# --accel values the port takes, and the reference's names for them
-_ACCELS = {"auto": "flash", "flash": "flash", "pallas": "flash",
-           "dense": "dense", "cluster": "cluster", "brute": "brute"}
-
 
 def _add_render_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--scene", default="bunny", help="scene name (see list-scenes)")
@@ -69,7 +65,7 @@ def _build_scene(args):
     kw = {}
     if args.assets and "assets_dir" in inspect.signature(make).parameters:
         kw["assets_dir"] = args.assets
-    return make(**kw).build(accel=_ACCELS[args.accel], device=args.device,
+    return make(**kw).build(accel=args.accel, device=args.device,
                             cluster_size=args.cluster_size)
 
 

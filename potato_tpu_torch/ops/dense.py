@@ -32,7 +32,8 @@ import numpy as np
 import torch
 
 from potato_tpu_torch.core import math as pmath
-from potato_tpu_torch.core.types import BIG, SMOL, HitBatch, RayBatch
+from potato_tpu_torch.core.types import (
+    BIG, SMOL, HitBatch, RayBatch, resolve_device)
 from potato_tpu_torch.ops.intersect import (
     sphere_hit_fields,
     triangle_hit_fields,
@@ -64,9 +65,10 @@ def _pad_axis(a: np.ndarray, axis: int, multiple: int) -> np.ndarray:
 
 
 def build_dense_accel(tables, num_spheres: int, num_triangles: int,
-                      pad_to: int = 128, device="cpu") -> DenseAccel:
+                      pad_to: int = 128, device="cuda") -> DenseAccel:
     """Product weight tables from the compiled scene's numpy tables,
     computed in float64 and stored in float32."""
+    device = resolve_device(device)
     pa = np.asarray(tables.tri_pa, np.float64)
     pb = np.asarray(tables.tri_pb, np.float64)
     pc = np.asarray(tables.tri_pc, np.float64)

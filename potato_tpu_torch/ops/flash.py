@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from potato_tpu_torch.core import math as pmath
-from potato_tpu_torch.core.types import BIG, HitBatch, RayBatch
+from potato_tpu_torch.core.types import BIG, HitBatch, RayBatch, resolve_device
 from potato_tpu_torch.ops.intersect import sphere_hit_t
 
 # Starting values; only DEFAULT_GROUP was chosen on the H100 (PERF.md).
@@ -171,6 +171,8 @@ def build_flash_accel(tables, num_spheres: int, num_triangles: int,
                       device="cuda") -> FlashAccel:
     """Host-side (cold path) build in vectorized numpy, uploaded once.
     `tables` is a SceneTables of numpy arrays or of tensors."""
+    device = resolve_device(device)
+
     def host(name, dtype):
         a = getattr(tables, name)
         if isinstance(a, torch.Tensor):

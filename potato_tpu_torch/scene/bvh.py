@@ -21,6 +21,8 @@ from typing import Dict, NamedTuple
 import numpy as np
 import torch
 
+from potato_tpu_torch.core.types import resolve_device
+
 PRIM_PAD = 0
 PRIM_SPHERE = 1
 PRIM_TRIANGLE = 2
@@ -71,8 +73,9 @@ def morton_codes(points: np.ndarray, lo: np.ndarray,
 def build_cluster_accel(s_center: np.ndarray, s_radius: np.ndarray,
                         s_material: np.ndarray, tri: Dict[str, np.ndarray],
                         cluster_size: int = 32,
-                        device="cpu") -> ClusterAccel:
+                        device="cuda") -> ClusterAccel:
     """The two-level accel over all spheres + triangles of a scene."""
+    device = resolve_device(device)
     ns = s_center.shape[0]
     ntr = tri["pa"].shape[0] if tri["pa"].size else 0
     n = ns + ntr

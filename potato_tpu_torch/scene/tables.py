@@ -172,7 +172,7 @@ def _upload(record, device):
         for a in record))
 
 
-ACCELS = ("flash", "auto", "dense", "cluster", "brute")
+ACCELS = ("flash", "auto", "pallas", "dense", "cluster", "brute")
 
 
 def compile_scene(desc: "d.SceneBuilder", accel: str = "auto",
@@ -180,18 +180,15 @@ def compile_scene(desc: "d.SceneBuilder", accel: str = "auto",
     """Flatten a SceneBuilder into device tables (+ acceleration structure).
 
     accel:
-    - "flash" (= "auto"): the block-queue intersector of ops/flash.py and
-      its hand-written kernel;
+    - "flash" (= "auto" = "pallas", the reference's name for its kernel):
+      the block-queue intersector of ops/flash.py and its hand-written
+      kernel;
     - "dense": all rays x all primitives as matrix products (ops/dense.py);
     - "cluster": Morton clusters of `cluster_size` primitives, visited
       front to back per ray (scene/bvh.py, ops/traverse.py);
     - "brute": dense tests against every primitive, the oracle.
     """
     device = resolve_device(device)
-    if accel == "pallas":
-        raise NotImplementedError(
-            "accel='pallas' names the TPU kernel of the JAX package; its "
-            "port is the flash kernel: use 'flash' (ROADMAP.md queue B)")
     if accel not in ACCELS:
         raise ValueError(f"unknown accel {accel!r}; one of {ACCELS}")
     mats = desc.materials or [d.Material()]
@@ -298,7 +295,7 @@ def compile_scene(desc: "d.SceneBuilder", accel: str = "auto",
     )
 
     accel_struct = None
-    if accel in ("flash", "auto"):
+    if accel in ("flash", "auto", "pallas"):
         from potato_tpu_torch.ops.flash import build_flash_accel
 
         accel_struct = build_flash_accel(tables, ns, ntr, device=device)

@@ -44,6 +44,17 @@ from potato_tpu_torch.scene import description as td
 from potato_tpu_torch.scene import examples as texamples
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Every case on one torch thread, restored after the file: the inputs
+    are small, and under the suite's other test workers a pool of every
+    core waits on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # ------------------------------------------------------- seeded scenes, rays
 
 def sphere_scene(d, seed, n):

@@ -32,6 +32,17 @@ from test_torch_io import write_assets
 _scenes = {}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Every case on one torch thread, restored after the file: the inputs
+    are small, and under the suite's other test workers a pool of every
+    core waits on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _scene(name, accel):
     if (name, accel) not in _scenes:
         _scenes[name, accel] = texamples.SCENES[name]().build(

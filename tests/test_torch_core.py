@@ -29,6 +29,17 @@ from potato_tpu_torch.render import renderer as trenderer
 ONES = 0xFFFFFFFF
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Every case on one torch thread, restored after the file: the inputs
+    are small, and under the suite's other test workers a pool of every
+    core waits on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # ------------------------------------------------------------------ rng
 
 # Published Threefry-2x32-20 vectors (Random123) and the 13-round fixture

@@ -52,6 +52,17 @@ from potato_tpu_torch.utils.metrics import MetricsLogger
 SIZE, SPP, BOUNCES, SEED = 8, 2, 3, 11
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Every case on one torch thread, restored after the file: the inputs
+    are small, and under the suite's other test workers a pool of every
+    core waits on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # ------------------------------------------------------------------ scenes
 
 def lit_three_balls(ex, d):

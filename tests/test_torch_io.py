@@ -58,6 +58,17 @@ f 3 2 4
 QUAD = "v 0 0 0\nv 1 0 0\nv 0 1 0\nv 1 1 0\nf 1 2 3 4\n"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Every case on one torch thread, restored after the file: the inputs
+    are small, and under the suite's other test workers a pool of every
+    core waits on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def sphere_mesh_text(subdivisions=2, radius=0.5, center=(0.0, 0.5, 0.0)):
     """An octahedron subdivided `subdivisions` times, as `v//vn` OBJ text
     (8 * 4^n triangles), every float written so it reads back exactly."""

@@ -59,6 +59,17 @@ TRAIN = dict(width=8, height=8, spp=2, max_bounce=3, seed=0, steps=2,
              learning_rate=20.0, init=0.25)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Every case on one torch thread, restored after the file: the inputs
+    are small, and under the suite's other test workers a pool of every
+    core waits on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def write_earthmap(directory, w=32, h=16):
     """A seeded smooth-plus-checker earthmap.tga in `directory`."""
     rng = np.random.default_rng(8)
@@ -342,3 +353,41 @@ def test_no_module_of_the_port_imports_jax():
                     or m.split(".")[-1] in reference and m.startswith(
                         "tools.")]
     assert len(ported) >= 6 and len(files) > 36 and not bad, bad
+
+
+def _is_one_thread_fixture(node):
+    """A module-scoped autouse fixture that sets one torch thread and
+    yields, so that the count is restored after the file."""
+    def is_fixture(dec):
+        kw = {k.arg: k.value for k in getattr(dec, "keywords", [])}
+        return (isinstance(dec, ast.Call)
+                and ast.unparse(dec.func) == "pytest.fixture"
+                and isinstance(kw.get("scope"), ast.Constant)
+                and kw["scope"].value == "module"
+                and isinstance(kw.get("autouse"), ast.Constant)
+                and kw["autouse"].value is True)
+
+    calls = {ast.unparse(n) for n in ast.walk(node)
+             if isinstance(n, ast.Call)}
+    return (isinstance(node, ast.FunctionDef)
+            and any(is_fixture(d) for d in node.decorator_list)
+            and "torch.set_num_threads(1)" in calls
+            and any(isinstance(n, ast.Yield) for n in ast.walk(node)))
+
+
+PORT_TEST_FILES = sorted(
+    n for n in os.listdir(os.path.join(ROOT, "tests"))
+    if n.startswith("test_torch_") and n.endswith(".py"))
+
+
+@pytest.mark.parametrize("name", PORT_TEST_FILES)
+def test_port_test_file_runs_on_one_torch_thread(name):
+    """Every port test file runs its cases on one torch thread: under the
+    suite's six workers on 8 cores a pool of every core waits on
+    descheduled threads, and the files' cases took minutes instead of
+    seconds. A new port test file without the fixture fails here."""
+    with open(os.path.join(ROOT, "tests", name)) as f:
+        tree = ast.parse(f.read())
+    assert any(_is_one_thread_fixture(n) for n in tree.body), (
+        f"{name} has no module-scoped autouse fixture calling "
+        "torch.set_num_threads(1)")

@@ -41,6 +41,17 @@ from test_torch_scene import port_scene_from_jax
 N = 4096
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Every case on one torch thread, restored after the file: the inputs
+    are small, and under the suite's other test workers a pool of every
+    core waits on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 

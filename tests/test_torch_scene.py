@@ -24,6 +24,17 @@ SCENES = ["three_balls", "more_balls", "two_balls", "one_triangle"]
 _cache = {}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Every case on one torch thread, restored after the file: the inputs
+    are small, and under the suite's other test workers a pool of every
+    core waits on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _pair(name):
     """(JAX CompiledScene, port CompiledScene), flash accel, built once."""
     if name not in _cache:
@@ -159,20 +170,54 @@ def test_entry_points_default_to_the_card_and_raise_without_one(entry):
 
 
 @pytest.mark.parametrize("accel", ["dense", "cluster", "pallas"])
-def test_unported_accels_say_so(accel):
-    """dense and cluster are ported now (tests/test_torch_accels.py holds
-    them) and build their structures; "pallas", the JAX package's name for
-    its TPU kernel, still says where its port is."""
-    if accel == "pallas":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            texamples.three_balls().build(accel=accel, device="cpu")
-        return
+def test_reference_accel_names_build_their_accel(accel):
+    """Every accel name the reference takes builds here: dense and cluster
+    their structures (tests/test_torch_accels.py holds them), and "pallas",
+    the reference's name for its kernel's path, the flash accel, as
+    potato_tpu/scene/tables.py maps it: its image is flash's, bit for bit."""
     from potato_tpu_torch.ops.dense import DenseAccel
+    from potato_tpu_torch.ops.flash import FlashAccel
     from potato_tpu_torch.scene.bvh import ClusterAccel
 
     ts = texamples.three_balls().build(accel=accel, device="cpu")
-    want = {"dense": DenseAccel, "cluster": ClusterAccel}[accel]
+    want = {"dense": DenseAccel, "cluster": ClusterAccel,
+            "pallas": FlashAccel}[accel]
     assert isinstance(ts.accel, want)
+    if accel == "pallas":
+        _, flash = _pair("three_balls")
+        got = trenderer.render(ts, 16, 8, spp=1, device="cpu")
+        ref = trenderer.render(flash, 16, 8, spp=1, device="cpu")
+        np.testing.assert_array_equal(got.color, ref.color)
+        np.testing.assert_array_equal(got.segments, ref.segments)
+
+
+@pytest.mark.parametrize("accel", ["flash", "dense", "cluster"])
+def test_accel_builders_default_to_the_card(accel):
+    """Called without `device`, each accel builder asks for the card: it
+    raises without one and builds there with one."""
+    from potato_tpu_torch.ops.dense import build_dense_accel
+    from potato_tpu_torch.ops.flash import build_flash_accel
+    from potato_tpu_torch.scene.bvh import build_cluster_accel
+
+    ts = texamples.three_balls().build(accel="brute", device="cpu")
+    tab = type(ts.tables)(*(a.numpy() for a in ts.tables))
+    ns, ntr = ts.num_spheres, ts.num_triangles
+    tri = {k: getattr(tab, "tri_" + k)[:ntr]
+           for k in ("pa", "pb", "pc", "na", "nb", "nc", "ua", "ub", "uc")}
+    tri["mat"] = tab.tri_material[:ntr]
+    calls = {
+        "flash": lambda: build_flash_accel(tab, ns, ntr),
+        "dense": lambda: build_dense_accel(tab, ns, ntr),
+        "cluster": lambda: build_cluster_accel(
+            tab.s_center[:ns], tab.s_radius[:ns], tab.s_material[:ns], tri),
+    }
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            calls[accel]()
+        return
+    built = calls[accel]()
+    tensors = [a for a in built if isinstance(a, torch.Tensor)]
+    assert tensors and all(a.device.type == "cuda" for a in tensors)
 
 
 def test_compact_driver_says_it_is_not_ported():
