@@ -6,9 +6,7 @@ targets and parameters (CPU).
 The JAX side's gradients are `jax.grad` of JAX's own `make_render_loss`,
 computed once per scene for all of its fields (one dict-valued loss), on
 `accel="brute"`. Its render is specialized to the scene's feature set, as
-the port's loss is: JAX's loss leaves `features` unset and so computes
-every material and texture variant for every lane, which selects the same
-values but takes minutes to compile on the CPU.
+the port's loss is (`jax_render.specialized_render`, which says why).
 
 Tolerances:
 - gradients against jax.grad: 1e-3 of max |g| per field: float32 through
@@ -22,8 +20,6 @@ Tolerances:
 """
 
 import json
-from contextlib import contextmanager
-from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -35,7 +31,6 @@ import potato_tpu.diff.optimize as joptimize
 from potato_tpu.core.types import HitBatch as JHitBatch
 from potato_tpu.diff import surrogate as jsurrogate
 from potato_tpu.ops import material as jmaterial
-from potato_tpu.render import renderer as jrenderer
 from potato_tpu.scene import description as jd
 from potato_tpu.scene import examples as jexamples
 
@@ -48,6 +43,8 @@ from potato_tpu_torch.ops import material as tmaterial
 from potato_tpu_torch.scene import description as td
 from potato_tpu_torch.scene import examples as texamples
 from potato_tpu_torch.utils.metrics import MetricsLogger
+
+from jax_render import specialized_render
 
 SIZE, SPP, BOUNCES, SEED = 8, 2, 3, 11
 
@@ -123,15 +120,6 @@ def _descriptions(name, tmp_factory):
     return jexamples.earth(assets), texamples.earth(assets)
 
 
-@contextmanager
-def specialized_jax_loss(jscene):
-    """JAX's make_render_loss, its render given the scene's features."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(joptimize, "render_chunk",
-                   partial(jrenderer.render_chunk, features=jscene.features))
-        yield
-
-
 def _target(seed=0):
     rng = np.random.default_rng(seed)
     return rng.uniform(0, 1, (SIZE * SIZE, 3)).astype(np.float32)
@@ -155,7 +143,7 @@ def grads(tmp_path_factory):
                   seed=SEED, fields=fields)
         target = _target()
         ids = np.arange(SIZE * SIZE * SPP)
-        with specialized_jax_loss(js):
+        with specialized_render(js):
             jloss = joptimize.make_render_loss(js, **kw)
         base = {f: jnp.asarray(getattr(js.tables, f)) for f in fields}
         jv, jg = jax.jit(jax.value_and_grad(
@@ -447,7 +435,7 @@ def _optimize_pair(tmp_path_factory, steps=3):
 
 def test_optimize_textures_losses_match_jax(tmp_path_factory):
     js, ts, target, kw = _optimize_pair(tmp_path_factory)
-    with specialized_jax_loss(js):
+    with specialized_render(js):
         want = joptimize.optimize_textures(js, target, **kw)
     got = toptimize.optimize_textures(ts, target, device="cpu", **kw)
     assert got.steps_done == want.steps_done == 3

@@ -28,7 +28,6 @@ Tolerances:
 
 import ast
 import os
-from contextlib import contextmanager
 from functools import partial
 
 import jax.numpy as jnp
@@ -39,7 +38,6 @@ import torch
 from potato_tpu.io import native as jnative
 from potato_tpu.parallel import make_ray_mesh
 from potato_tpu.parallel import shard as jshard
-from potato_tpu.render import renderer as jrenderer
 from potato_tpu.scene import examples as jexamples
 
 from potato_tpu_torch.io import native as tnative
@@ -50,6 +48,7 @@ from potato_tpu_torch.render import renderer as trenderer
 from potato_tpu_torch.scene import examples as texamples
 
 from chip_smoke_ranks import frame_ray_ids, measure_render, measure_train_step
+from jax_render import specialized_render
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RENDER = dict(width=16, height=16, spp=2, max_bounce=4, seed=3)
@@ -131,18 +130,6 @@ def _image(rows):
     return flat.reshape(h, w, spp, 3).mean(axis=2)
 
 
-@contextmanager
-def specialized(jscene):
-    """The reference's sharded functions with render_chunk given the
-    scene's feature set, as the port's are. Its default computes every
-    material and texture variant for every lane: the same values, but
-    half a minute of compilation on the CPU."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jshard, "render_chunk",
-                   partial(jrenderer.render_chunk, features=jscene.features))
-        yield
-
-
 # ------------------------------------------------------------ the render
 
 @pytest.mark.parametrize("world", [1, 2, 4])
@@ -168,12 +155,12 @@ def test_scene_digest_equal_on_every_rank(runs, world):
 def test_sharded_render_matches_the_jax_sharded_render(runs):
     """World 4 against the reference's shard_map render on 8 devices,
     the same (tile-swizzled) ray ids; the reference given the scene's
-    feature set (see `specialized`)."""
+    feature set, as the port's is (`jax_render.specialized_render`)."""
     got = runs[4]["render"]["scenes"]["three_balls"]
     js = jexamples.three_balls().build(accel="brute")
     ids = frame_ray_ids(RENDER["width"], RENDER["height"],
                                RENDER["spp"], "cpu")
-    with specialized(js):
+    with specialized_render(js, jshard):
         fn = jshard.make_sharded_render_fn(js, make_ray_mesh(), **RENDER)
         want = fn(js.tables, js.camera, jnp.asarray(ids.numpy(), jnp.uint32))
     diff = np.abs(_image(got["color"]).astype(np.float64)
@@ -192,7 +179,7 @@ def test_train_step_matches_the_jax_sharded_train_step(runs, assets):
     js = jexamples.earth(assets).build(accel="brute")
     kw = {k: TRAIN[k] for k in ("width", "height", "spp", "max_bounce",
                                 "seed", "learning_rate")}
-    with specialized(js):
+    with specialized_render(js, jshard):
         step = jshard.make_sharded_train_step(js, make_ray_mesh(), **kw)
         total = TRAIN["width"] * TRAIN["height"] * TRAIN["spp"]
         atlas, loss = step(jnp.full(js.tables.atlas.shape, TRAIN["init"]),
