@@ -14,6 +14,9 @@ Tolerances:
 - the port's flash gradient against its brute-force gradient: rtol 2e-4,
   atol 1e-7, as tests/test_gradients.py holds the JAX package's;
 - finite differences: the relative tolerances of tests/test_gradients.py;
+- the IOR gradient against a wide FD with and without its choice term,
+  and the pathwise one against a tiny-eps FD: the gates of
+  tests/test_surrogate.py and tests/test_gradients.py;
 - the chunk-by-chunk gradient against one whole-frame graph: 1e-5 of
   max |g| (float32 summation order only);
 - losses of optimize_textures against JAX's: rtol 1e-4.
@@ -31,6 +34,7 @@ import potato_tpu.diff.optimize as joptimize
 from potato_tpu.core.types import HitBatch as JHitBatch
 from potato_tpu.diff import surrogate as jsurrogate
 from potato_tpu.ops import material as jmaterial
+from potato_tpu.render import renderer as jrenderer
 from potato_tpu.scene import description as jd
 from potato_tpu.scene import examples as jexamples
 
@@ -40,6 +44,7 @@ from potato_tpu_torch.diff import surrogate as tsurrogate
 from potato_tpu_torch.io import tga
 from potato_tpu_torch.ops import flash as tflash
 from potato_tpu_torch.ops import material as tmaterial
+from potato_tpu_torch.render.renderer import make_intersect_fn, render_chunk
 from potato_tpu_torch.scene import description as td
 from potato_tpu_torch.scene import examples as texamples
 from potato_tpu_torch.utils.metrics import MetricsLogger
@@ -62,13 +67,23 @@ def one_thread():
 
 # ------------------------------------------------------------------ scenes
 
-def lit_three_balls(ex, d):
-    """three_balls with one emissive material and a colour background, so
-    that every field of DIFFERENTIABLE_FIELDS moves the image."""
+def three_balls(ex, d):
+    return ex.three_balls()
+
+
+def emissive_three_balls(ex, d):
+    """three_balls with material 1 emissive, so the emit table matters."""
     s = ex.three_balls()
     s.materials[1] = d.Material(s.materials[1].scatter,
                                 s.materials[1].absorb,
                                 d.Emit.color_(0.5, 0.2, 0.1))
+    return s
+
+
+def lit_three_balls(ex, d):
+    """three_balls with one emissive material and a colour background, so
+    that every field of DIFFERENTIABLE_FIELDS moves the image."""
+    s = emissive_three_balls(ex, d)
     s.background = d.Emit.color_(0.9, 0.8, 1.0)
     return s
 
@@ -87,6 +102,43 @@ def glass(ex, d):
     s.add_sphere((0.0, 0.0, -2.0), 0.6, m0)
     s.add_sphere((0.5, 0.2, -3.2), 0.7, m1)
     s.background = d.Emit.sky_gradient()
+    return s
+
+
+def metal_ball(ex, d):
+    """A fuzzy metal sphere filling a narrow fov: no silhouette lanes, and
+    scattered rays end in the smooth sky gradient."""
+    s = d.SceneBuilder()
+    s.camera = d.Camera(fov=0.3, position=(0.0, 0.0, 0.0),
+                        target=(0.0, 0.0, -2.0))
+    m0 = s.add_material(d.Material(d.Scatter.metal(0.3),
+                                   d.Absorb.albedo(0.9, 0.9, 0.9),
+                                   d.Emit.none()))
+    s.add_sphere((0.0, 0.0, -2.0), 1.0, m0)
+    return s
+
+
+def sky_glass_ball(ex, d):
+    """tests/test_surrogate.py's IOR scene: a clear dielectric sphere
+    filling most of a wide fov against the sky."""
+    s = d.SceneBuilder()
+    m = s.add_material(d.Material(d.Scatter.dielectric(1.5),
+                                  d.Absorb.white_body(), d.Emit.none()))
+    s.add_sphere((0.0, 0.0, -2.2), 1.0, m)
+    s.camera = d.Camera(fov=np.pi / 3)
+    return s
+
+
+def tinted_glass_ball(ex, d):
+    """tests/test_gradients.py's IOR scene: a tinted dielectric sphere in
+    a narrow fov."""
+    s = d.SceneBuilder()
+    s.camera = d.Camera(fov=0.4, position=(0.0, 0.0, 0.0),
+                        target=(0.0, 0.0, -2.0))
+    m = s.add_material(d.Material(d.Scatter.dielectric(1.5),
+                                  d.Absorb.albedo(0.8, 0.9, 1.0),
+                                  d.Emit.none()))
+    s.add_sphere((0.0, 0.0, -2.0), 0.9, m)
     return s
 
 
@@ -403,6 +455,168 @@ def test_gradient_matches_central_finite_differences(name, field, eps, rel):
     ad = float(g[index])
     assert abs(ad) > 1e-6
     assert abs(fd - ad) / max(abs(fd), abs(ad)) < rel, (ad, fd)
+
+
+def _fd_check(builder, field, rel_tol, eps, *, index=None, spp=2, size=12,
+              max_bounce=3, seed=11, accel="brute"):
+    """tests/test_gradients.py's _fd_check on the port: loss mean(color^2),
+    its gradient chunk by chunk, a central difference at `index` (default
+    the largest |g|)."""
+    s = builder(texamples, td).build(accel=accel, device="cpu")
+    loss = toptimize.make_render_loss(
+        s, width=size, height=size, spp=spp, max_bounce=max_bounce,
+        seed=seed, fields=(field,))
+    ids = torch.arange(size * size * spp)
+    target = torch.zeros(size * size, 3)
+    base = getattr(s.tables, field)
+    g = loss.value_and_grad({field: base}, ids, target)[1][field]
+    if index is None:
+        index = np.unravel_index(int(g.abs().argmax()), tuple(g.shape))
+    basis = torch.zeros_like(base)
+    basis[index] = 1.0
+    f_plus = float(loss({field: base + eps * basis}, ids, target))
+    f_minus = float(loss({field: base - eps * basis}, ids, target))
+    fd = (f_plus - f_minus) / (2 * eps)
+    ad = float(g[index])
+    assert np.isfinite(ad)
+    assert abs(fd - ad) / max(abs(fd), abs(ad), 1e-8) < rel_tol, (
+        f"{field}[{index}]: AD {ad:.6g} vs FD {fd:.6g}")
+    return ad
+
+
+@pytest.mark.parametrize("builder,field,rel,eps,kw,floor", [
+    (three_balls, "t_color", 5e-3, 1e-2, {}, 1e-6),
+    (emissive_three_balls, "m_emit_color", 5e-3, 1e-2, {}, 1e-6),
+    (three_balls, "m_absorb_color", 5e-3, 1e-2,
+     dict(size=8, max_bounce=2, accel="flash"), 1e-6),
+    (metal_ball, "m_scatter_param", 3e-2, 3e-3,
+     dict(index=(0,), spp=4, max_bounce=2), 1e-5),
+    (metal_ball, "m_scatter_param", 3e-2, 3e-3,
+     dict(index=(0,), spp=4, max_bounce=2, accel="flash"), 1e-5),
+], ids=["solid_texture", "emission", "albedo_flash", "fuzz", "fuzz_flash"])
+def test_gradient_matches_fd_as_the_jax_package_checks(builder, field, rel,
+                                                        eps, kw, floor):
+    """The scenes, fields, steps, tolerances and sizes of the matching
+    cases of tests/test_gradients.py."""
+    assert abs(_fd_check(builder, field, rel, eps, **kw)) > floor
+
+
+def test_fuzz_gradient_matches_jax():
+    """The brute fuzz case above against jax.grad of JAX's own loss on the
+    same scene, rays and target."""
+    size, spp = 12, 4
+    kw = dict(width=size, height=size, spp=spp, max_bounce=2, seed=SEED,
+              fields=("m_scatter_param",))
+    ids = np.arange(size * size * spp)
+    target = np.zeros((size * size, 3), np.float32)
+    js = metal_ball(jexamples, jd).build(accel="brute")
+    with specialized_render(js):
+        jloss = joptimize.make_render_loss(js, **kw)
+    jv, jg = jax.jit(jax.value_and_grad(
+        lambda p: jloss({"m_scatter_param": p}, jnp.asarray(ids, jnp.uint32),
+                        jnp.asarray(target))))(
+        jnp.asarray(js.tables.m_scatter_param))
+    ts = metal_ball(texamples, td).build(accel="brute", device="cpu")
+    tloss = toptimize.make_render_loss(ts, **kw)
+    tv, tg = tloss.value_and_grad(
+        {"m_scatter_param": ts.tables.m_scatter_param},
+        torch.from_numpy(ids), torch.from_numpy(target))
+    g = tg["m_scatter_param"].numpy()
+    np.testing.assert_allclose(float(tv), float(jv), rtol=1e-5)
+    _assert_grad_close(g, np.asarray(jg), "m_scatter_param")
+    assert abs(g[0]) > 1e-5
+
+
+def _ior_renders(builder, size, spp, max_bounce, seed):
+    """The colour of every ray of `builder`'s scene as a function of its
+    dielectric's IOR and of ior_score: on the port, and on JAX with its
+    render specialized to the scene's features."""
+    ts = builder(texamples, td).build(accel="brute", device="cpu")
+    js = builder(jexamples, jd).build(accel="brute")
+    kw = dict(width=size, height=size, spp=spp, max_bounce=max_bounce,
+              seed=seed)
+    t_ids = torch.arange(size * size * spp)
+    j_ids = jnp.arange(size * size * spp, dtype=jnp.uint32)
+    t_intersect = make_intersect_fn(ts)
+    j_intersect = jrenderer.make_intersect_fn(js)
+
+    def port(ior, score):
+        tables = ts.tables._replace(
+            m_scatter_param=ior.expand_as(ts.tables.m_scatter_param))
+        return render_chunk(tables, ts.camera, t_ids,
+                            intersect_fn=t_intersect, ior_score=score,
+                            **kw).color
+
+    def jax_(ior, score):
+        tables = js.tables._replace(
+            m_scatter_param=jnp.full_like(js.tables.m_scatter_param, ior))
+        return jrenderer.render_chunk(tables, js.camera, j_ids,
+                                      intersect_fn=j_intersect,
+                                      features=js.features, ior_score=score,
+                                      **kw).color
+
+    return port, jax_
+
+
+def test_render_ior_gradient_includes_choice_term():
+    """tests/test_surrogate.py's case through the port's render_chunk: a
+    dielectric sphere against the sky at max_bounce 2, whose image moves
+    with the IOR almost only through the reflect probability. A wide
+    common-random-numbers FD is the oracle: ior_score=True must match it,
+    ior_score=False must not. Both gradients are also JAX's."""
+    port, jax_ = _ior_renders(sky_glass_ball, size=12, spp=48, max_bounce=2,
+                              seed=3)
+
+    def grad_image(score):
+        ior = torch.tensor(1.5, requires_grad=True)
+        return float(torch.autograd.grad(port(ior, score).mean(), ior)[0])
+
+    g_on, g_off = grad_image(True), grad_image(False)
+    eps = 0.05  # wide FD step: flips are discrete, need many in the bracket
+    with torch.no_grad():
+        fd = float((port(torch.tensor(1.5 + eps), False).mean()
+                    - port(torch.tensor(1.5 - eps), False).mean()) / (2 * eps))
+    assert abs(g_on - fd) < 0.4 * abs(fd), (g_on, g_off, fd)
+    assert abs(g_off - fd) > 3 * abs(g_on - fd), (g_on, g_off, fd)
+    j_g = jax.jit(lambda i: jnp.stack([
+        jax.grad(lambda j: jax_(j, score).mean())(i)
+        for score in (True, False)]))(jnp.float32(1.5))
+    _assert_grad_close(np.array([g_on, g_off]), np.asarray(j_g),
+                       "m_scatter_param")
+
+
+def test_ior_pathwise_gradient_matches_fd():
+    """tests/test_gradients.py::test_ior_gradient_matches_fd on the port:
+    the pathwise estimator (ior_score=False), whose gradient flows through
+    Schlick and the refracted direction, against a tiny-eps FD at seven
+    base points. The loss is piecewise smooth with branch flips ~1e-2
+    apart in IOR, so the median relative error is gated: it is immune to
+    the minority of stencils that straddle a flip. The port's gradients at
+    those points are also JAX's."""
+    spp = 4
+    port, jax_ = _ior_renders(tinted_glass_ball, size=16, spp=spp,
+                              max_bounce=4, seed=17)
+
+    def loss(render):
+        return lambda ior: (
+            render(ior, False).reshape(-1, spp, 3).mean(1) ** 2).mean()
+
+    t_loss, j_grad = loss(port), jax.jit(jax.grad(loss(jax_)))
+    eps = 1e-3
+    rel_errs, ads, j_ads = [], [], []
+    for base in (1.4931, 1.4967, 1.4990, 1.5005, 1.5041, 1.5062, 1.5098):
+        b = torch.tensor(base)
+        with torch.no_grad():
+            fd = (float(t_loss(b + eps)) - float(t_loss(b - eps))) / (2 * eps)
+        ior = b.clone().requires_grad_(True)
+        ad = float(torch.autograd.grad(t_loss(ior), ior)[0])
+        assert np.isfinite(ad)
+        assert abs(ad) > 1e-4
+        rel_errs.append(abs(fd - ad) / max(abs(fd), abs(ad), 1e-8))
+        ads.append(ad)
+        j_ads.append(float(j_grad(jnp.float32(base))))
+    assert np.median(rel_errs) < 0.2, rel_errs
+    _assert_grad_close(np.array(ads), np.array(j_ads), "m_scatter_param")
 
 
 @pytest.mark.parametrize("chunk", [38, 64])

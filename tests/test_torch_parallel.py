@@ -27,7 +27,10 @@ Tolerances:
 """
 
 import ast
+import importlib.util
 import os
+import subprocess
+import sys
 from functools import partial
 
 import jax.numpy as jnp
@@ -378,3 +381,22 @@ def test_port_test_file_runs_on_one_torch_thread(name):
     assert any(_is_one_thread_fixture(n) for n in tree.body), (
         f"{name} has no module-scoped autouse fixture calling "
         "torch.set_num_threads(1)")
+
+
+def test_root_conftest_marks_exactly_its_slow_jax_cases():
+    """conftest.py at the root marks the JAX gradient cases of minutes
+    each slow by node id: a renamed case or a typo in its list would put
+    the case back into the default run, or leave an id that marks
+    nothing."""
+    spec = importlib.util.spec_from_file_location(
+        "root_conftest", os.path.join(ROOT, "conftest.py"))
+    root_conftest = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(root_conftest)
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--collect-only", "-q",
+         "-p", "no:cacheprovider", "-m", "slow", "tests/test_gradients.py",
+         "tests/test_surrogate.py"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    listed = [line for line in proc.stdout.splitlines() if "::" in line]
+    assert sorted(listed) == sorted(root_conftest.SLOW_CASES), listed
