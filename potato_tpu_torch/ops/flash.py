@@ -1052,7 +1052,11 @@ def intersect_flash(accel: FlashAccel, tables, rays: RayBatch,
     downstream of the HitBatch, which needs the hit's values only; the
     dense sphere test's t also carries centre and radius gradients. Not
     differentiable: d(hit decision)/d(geometry).
+
+    `intersect_flash.lanes` counts the lanes handed in, live or dead, on
+    every device, read from the batch's shape: no host sync.
     """
+    intersect_flash.lanes += rays.origin.shape[0]
     inp = prepare_flash(accel, tables, rays, block)
     fn = flash_intersect_plain if force_plain else flash_intersect_kernel
     raw = fn(inp.packed_rays, inp.queues, accel.tri_flat.detach(),
@@ -1060,3 +1064,6 @@ def intersect_flash(accel: FlashAccel, tables, rays: RayBatch,
              group=resolve_group(block))
     raw = tuple(x.detach() for x in raw)
     return flash_epilogue(accel, rays, raw, inp.sph_dense)
+
+
+intersect_flash.lanes = 0

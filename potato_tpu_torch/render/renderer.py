@@ -314,7 +314,9 @@ def render(scene: CompiledScene, width: int, height: int, spp: int = 4,
 
     metrics: optional utils.metrics.MetricsLogger (or the POTATO_METRICS
     env path): JSONL events render_start, chunk (per-chunk path only),
-    checkpoint and render_complete.
+    checkpoint and render_complete (with `lanes`, the lanes the bounce
+    passes handed to the flash intersector; segments / lanes is the share
+    of them that carried a live path).
 
     progress / checkpoint_path: dispatch chunk by chunk, with a progress
     line per chunk and, with a path, a running-image checkpoint saved
@@ -324,12 +326,14 @@ def render(scene: CompiledScene, width: int, height: int, spp: int = 4,
     bit-identical to an uninterrupted render. This path needs
     chunk-granular results, so it always takes the chunked driver.
     """
+    from potato_tpu_torch.ops.flash import intersect_flash
     from potato_tpu_torch.utils.metrics import from_env_or
 
     own_metrics = metrics is None        # a POTATO_METRICS file is ours
     metrics = from_env_or(metrics)
     try:
         t_start = time.perf_counter()
+        lanes_before = intersect_flash.lanes
         driver, chunk_size, num_chunks = _resolve(
             scene, device, driver, width, height, spp, chunk_size)
         total = width * height * spp
@@ -359,6 +363,7 @@ def render(scene: CompiledScene, width: int, height: int, spp: int = 4,
         result = _to_host(out, width, height, spp, with_aovs)
         wall = time.perf_counter() - t_start
         metrics.log("render_complete", segments=result.segments,
+                    lanes=intersect_flash.lanes - lanes_before,
                     seconds=round(wall, 4),
                     rays_per_s=round(result.segments / max(wall, 1e-9), 1))
         return result

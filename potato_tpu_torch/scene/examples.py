@@ -1,9 +1,11 @@
 """The example scene library, as data.
 
-The seven example scenes (cameras, material/texture tables, geometry):
+The eight example scenes (cameras, material/texture tables, geometry):
 
 - `more_balls` reproduces its seeded random grid draw for draw:
   core/stdrng.py carries the ChaCha12 `StdRng` stream it is laid out with.
+- `cornell_box` is the Cornell box of *Ray Tracing: The Next Week*, as
+  triangles; the other scenes come from the upstream's example_scenes.rs.
 - `glass_bunny` / `bunny`: the SkySphere environment is a procedurally
   generated equirect panorama (sun + horizon gradient) baked into an image
   texture.
@@ -225,6 +227,95 @@ def bunny(assets_dir: Optional[str] = None) -> SceneBuilder:
         assets_dir)
 
 
+def _quad(q, u, v, n):
+    """The book's quad (corner q, edges u and v) as its four corners q,
+    q+u, q+u+v, q+v in float64, with the normal n of its reachable side."""
+    q, u, v = (np.asarray(x, np.float64) for x in (q, u, v))
+    return [q, q + u, q + u + v, q + v], np.asarray(n, np.float64)
+
+
+def _quads_mesh(quads) -> MeshData:
+    """Quads from `_quad` as one mesh: four vertices a quad with uvs (0,0),
+    (1,0), (1,1), (0,1) as the book's quad parameterises it, split into
+    the triangles (0, 1, 2) and (0, 2, 3)."""
+    pos, nrm, idx = [], [], []
+    for k, (corners, n) in enumerate(quads):
+        pos += corners
+        nrm += [n] * 4
+        idx += [[4 * k, 4 * k + 1, 4 * k + 2], [4 * k, 4 * k + 2, 4 * k + 3]]
+    uvs = np.tile(np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32),
+                  (len(quads), 1))
+    return MeshData(positions=np.asarray(pos).astype(np.float32),
+                    normals=np.asarray(nrm).astype(np.float32),
+                    uvs=uvs, indices=np.asarray(idx, np.int32))
+
+
+def _box_quads(size, degrees: float, offset):
+    """The book's `box((0,0,0), size)` turned by `rotate_y(degrees)` and
+    moved by `translate(offset)`: its sides front, right, back, left, top
+    and bottom with outward normals, each corner and normal turned as
+    `rotate_y` maps object space to world space (x' = cos x + sin z,
+    z' = -sin x + cos z), then the corners moved."""
+    a, b, c = (float(x) for x in size)
+    dx, dy, dz = np.diag([a, b, c])
+    sides = [_quad((0, 0, c), dx, dy, (0, 0, 1)),
+             _quad((a, 0, c), -dz, dy, (1, 0, 0)),
+             _quad((a, 0, 0), -dx, dy, (0, 0, -1)),
+             _quad((0, 0, 0), dz, dy, (-1, 0, 0)),
+             _quad((0, b, c), dx, -dz, (0, 1, 0)),
+             _quad((0, 0, 0), dx, dz, (0, -1, 0))]
+    th = np.radians(degrees)
+    cos, sin = np.cos(th), np.sin(th)
+
+    def turn(p):
+        return np.array([cos * p[0] + sin * p[2], p[1],
+                         -sin * p[0] + cos * p[2]])
+
+    move = np.asarray(offset, np.float64)
+    return [([turn(p) + move for p in corners], turn(n))
+            for corners, n in sides]
+
+
+def cornell_box() -> SceneBuilder:
+    """The Cornell box of Shirley, Black and Hollasch, *Ray Tracing: The
+    Next Week* (v4), `cornell_box()` of its chapters "Lights" and
+    "Instances": five 555-unit walls (green at x = 555, red at x = 0,
+    white floor, ceiling and back), a 130x105 light of (15, 15, 15) under
+    the ceiling, two white blocks turned by 15 and -18 degrees about y, a
+    black background; vfov 40 degrees from (278, 278, -800), no defocus.
+    The book renders it at 600x600, 200 samples a pixel, `max_depth` 50:
+    the caller's to pass.
+
+    The port has no instancing, so each quad is two triangles and the
+    turned blocks are baked into their vertices (float64, then float32):
+    36 triangles, no spheres, no asset.
+
+    Departure from the book: its quads are two-sided, and the port's
+    Lambert culls back faces (as the upstream's does). So each face's
+    vertex normals point to the side a ray can reach it from: the walls
+    inward, the blocks outward, the light down."""
+    s = SceneBuilder()
+    s.camera = Camera(aspect_ratio=1.0, fov=2.0 * np.pi / 9.0,
+                      focal_dist=10.0, lens_radius=0.0,
+                      position=(278.0, 278.0, -800.0),
+                      target=(278.0, 278.0, 0.0), up=(0.0, 1.0, 0.0))
+    red = s.add_material(Material(Scatter.lambert(), Absorb.albedo(0.65, 0.05, 0.05), Emit.none()))
+    white = s.add_material(Material(Scatter.lambert(), Absorb.albedo(0.73, 0.73, 0.73), Emit.none()))
+    green = s.add_material(Material(Scatter.lambert(), Absorb.albedo(0.12, 0.45, 0.15), Emit.none()))
+    light = s.add_material(Material(Scatter.none(), Absorb.black_body(), Emit.color_(15.0, 15.0, 15.0)))
+    s.add_mesh(_quads_mesh([_quad((555, 0, 0), (0, 555, 0), (0, 0, 555), (-1, 0, 0))]), green)
+    s.add_mesh(_quads_mesh([_quad((0, 0, 0), (0, 555, 0), (0, 0, 555), (1, 0, 0))]), red)
+    s.add_mesh(_quads_mesh([_quad((343, 554, 332), (-130, 0, 0), (0, 0, -105), (0, -1, 0))]), light)
+    s.add_mesh(_quads_mesh(
+        [_quad((0, 0, 0), (555, 0, 0), (0, 0, 555), (0, 1, 0)),
+         _quad((555, 555, 555), (-555, 0, 0), (0, 0, -555), (0, -1, 0)),
+         _quad((0, 0, 555), (555, 0, 0), (0, 555, 0), (0, 0, -1))]
+        + _box_quads((165, 330, 165), 15.0, (265, 0, 295))
+        + _box_quads((165, 165, 165), -18.0, (130, 0, 65))), white)
+    s.background = Emit.none()
+    return s
+
+
 SCENES = {
     "three_balls": three_balls,
     "more_balls": more_balls,
@@ -234,4 +325,5 @@ SCENES = {
     "one_triangle": one_triangle,
     "glass_bunny": glass_bunny,
     "bunny": bunny,
+    "cornell_box": cornell_box,
 }
