@@ -21,21 +21,37 @@ _I64_MAX = float(2**63 - 1)
 _TWO32 = float(2**32)
 
 
-def _i64(x, device=None):
+def _wrap64(v: int) -> int:
+    """A python int as the signed 64-bit value it wraps to."""
+    v &= (1 << 64) - 1
+    return v - (1 << 64) if v >> 63 else v
+
+
+def _i64(x, k: int):
+    """x * k in wrapping signed 64-bit: an int64 tensor of a tensor x, a
+    python int of a python int x. Torch takes the python int as a scalar
+    argument of the add that uses it, so no tensor is made for it: on a
+    card, no host-to-device copy and no host sync."""
     if isinstance(x, torch.Tensor):
-        return x.to(torch.int64)
-    return torch.tensor(int(x), dtype=torch.int64, device=device)
+        return x.to(torch.int64) * k
+    return _wrap64(int(x) * k)
 
 
 def noise_i64(x, y, z, seed):
     """The 64-bit lattice hash as an int64 tensor.
 
     h = A*x + B*y + C*z + D*seed;  h = (h >> 13) ^ h  (arithmetic shift);
-    h = h * (h*h*E + F) + G, all wrapping 64-bit."""
-    dev = next((a.device for a in (x, y, z, seed)
-                if isinstance(a, torch.Tensor)), None)
-    h = (_i64(x, dev) * _A + _i64(y, dev) * _B + _i64(z, dev) * _C
-         + _i64(seed, dev) * _D)
+    h = h * (h*h*E + F) + G, all wrapping 64-bit (so the order of the four
+    adds changes no bit)."""
+    terms = (_i64(x, _A), _i64(y, _B), _i64(z, _C), _i64(seed, _D))
+    tensors = [t for t in terms if isinstance(t, torch.Tensor)]
+    const = _wrap64(sum(t for t in terms if not isinstance(t, torch.Tensor)))
+    if not tensors:                      # python ints alone: a host tensor
+        h = torch.tensor(const, dtype=torch.int64)
+    else:
+        h = sum(tensors[1:], tensors[0])
+        if len(tensors) < len(terms):
+            h = h + const
     h = (h >> 13) ^ h
     return h * (h * h * _E + _F) + _G
 

@@ -21,6 +21,8 @@ carry a cipher). Two round counts:
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 _ROTATIONS = (13, 15, 26, 6, 17, 29, 16, 24)
@@ -40,11 +42,14 @@ NUM_STREAMS = 8
 RENDER_ROUNDS = 13
 
 
-def _word(x, device=None):
-    """A 32-bit word as an int64 tensor (python ints and tensors alike)."""
+def _word(x):
+    """A 32-bit word: an int64 tensor of a tensor, a python int of a python
+    int. Torch takes the python int as a scalar argument of the op that
+    uses it, so no tensor is made for it: on a card, no host-to-device copy
+    and no host sync."""
     if isinstance(x, torch.Tensor):
         return x.to(torch.int64) & _M32
-    return torch.tensor(int(x) & _M32, dtype=torch.int64, device=device)
+    return int(x) & _M32
 
 
 def _rotl(x, r):
@@ -59,13 +64,15 @@ def threefry2x32(key0, key1, ctr0, ctr1, rounds: int = 20):
     rounds, plus a final injection when the count is not a multiple of 4
     (rounds=13: injections after rounds 4, 8, 12, 13).
     """
-    dev = next((a.device for a in (ctr0, ctr1, key0, key1)
-                if isinstance(a, torch.Tensor)), None)
-    k0 = _word(key0, dev)
-    k1 = _word(key1, dev)
+    if not any(isinstance(a, torch.Tensor)
+               for a in (ctr0, ctr1, key0, key1)):
+        # python ints alone: the words come back as host tensors
+        ctr0 = torch.tensor(_word(ctr0), dtype=torch.int64)
+    k0 = _word(key0)
+    k1 = _word(key1)
     k2 = k0 ^ k1 ^ _PARITY
-    x0 = (_word(ctr0, dev) + k0) & _M32
-    x1 = (_word(ctr1, dev) + k1) & _M32
+    x0 = (_word(ctr0) + k0) & _M32
+    x1 = (_word(ctr1) + k1) & _M32
 
     ks = (k0, k1, k2)
     j = 0
@@ -81,21 +88,31 @@ def threefry2x32(key0, key1, ctr0, ctr1, rounds: int = 20):
     return x0, x1
 
 
-def _key_from_seed(seed: int):
+class Key(NamedTuple):
+    """The two 32-bit key words of a 64-bit seed: python ints, or int64
+    scalars on the device (which a captured CUDA graph reads, so that one
+    graph serves every seed)."""
+
+    k0: object
+    k1: object
+
+
+def key_from_seed(seed: int) -> Key:
     seed = int(seed) & 0xFFFFFFFFFFFFFFFF
-    return seed & _M32, (seed >> 32) & _M32
+    return Key(seed & _M32, (seed >> 32) & _M32)
 
 
 def random_bits2(seed, salt, ids):
     """Two independent 32-bit words per id. `ids` is an integer tensor of
-    global ray ids; `salt` a python int or a scalar tensor; `seed` a python
-    int (64 bits used) or a tensor (32 bits used)."""
-    if isinstance(seed, torch.Tensor):
+    global ray ids; `salt` a python int or an integer tensor that
+    broadcasts against `ids`; `seed` a python int (64 bits used), a `Key`,
+    or a tensor (32 bits used)."""
+    if isinstance(seed, Key):
+        k0, k1 = seed
+    elif isinstance(seed, torch.Tensor):
         k0, k1 = seed, 0
     else:
-        k0, k1 = _key_from_seed(seed)
-    ids = _word(ids)
-    salt = _word(salt, ids.device).expand(ids.shape)
+        k0, k1 = key_from_seed(seed)
     return threefry2x32(k0, k1, ids, salt, rounds=RENDER_ROUNDS)
 
 

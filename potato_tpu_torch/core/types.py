@@ -32,6 +32,29 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+_CONSTANTS = {}
+
+
+def device_constant(values, dtype, device) -> torch.Tensor:
+    """A small constant vector on `device`, made once per device and kept.
+
+    It is written by one fill a value, never copied from the host, so
+    making it does not sync the host with a card. Made while a CUDA graph
+    is being captured, it is made afresh and not kept: its fills run only
+    when the graph replays. Callers must not write to it."""
+    device = torch.device(device)
+    key = (tuple(values), dtype, device)
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = torch.empty(len(values), dtype=dtype, device=device)
+        for i, v in enumerate(values):
+            t[i].fill_(v)
+        if not (device.type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            _CONSTANTS[key] = t
+    return t
+
+
 class RayBatch(NamedTuple):
     """A batch of rays origin + t*direction, t in [t_min, t_max].
 

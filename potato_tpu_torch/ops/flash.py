@@ -1037,6 +1037,19 @@ def flash_epilogue(accel: FlashAccel, rays: RayBatch, raw,
     )
 
 
+def flash_hits(accel: FlashAccel, inp: FlashInputs, block: int = R,
+               force_plain: bool = False):
+    """The kernel (or, with force_plain, its plain version) over what
+    `prepare_flash` built: (tri_t, tri_slot, sph_t, sph_slot), detached.
+    `flash_intersect_kernel` is looked up on this module at each call, so
+    a wrapper set in its place sees every launch with its own inputs."""
+    fn = flash_intersect_plain if force_plain else flash_intersect_kernel
+    raw = fn(inp.packed_rays, inp.queues, accel.tri_flat.detach(),
+             accel.sph_feats.detach(), block, inp.has_sph,
+             group=resolve_group(block))
+    return tuple(x.detach() for x in raw)
+
+
 def intersect_flash(accel: FlashAccel, tables, rays: RayBatch,
                     block: int = R, force_plain: bool = False) -> HitBatch:
     """Closest hit over all scene primitives: queue build, kernel, epilogue.
@@ -1058,11 +1071,7 @@ def intersect_flash(accel: FlashAccel, tables, rays: RayBatch,
     """
     intersect_flash.lanes += rays.origin.shape[0]
     inp = prepare_flash(accel, tables, rays, block)
-    fn = flash_intersect_plain if force_plain else flash_intersect_kernel
-    raw = fn(inp.packed_rays, inp.queues, accel.tri_flat.detach(),
-             accel.sph_feats.detach(), block, inp.has_sph,
-             group=resolve_group(block))
-    raw = tuple(x.detach() for x in raw)
+    raw = flash_hits(accel, inp, block, force_plain)
     return flash_epilogue(accel, rays, raw, inp.sph_dense)
 
 

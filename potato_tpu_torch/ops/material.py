@@ -24,7 +24,7 @@ import torch
 
 from potato_tpu_torch.core import math as pmath
 from potato_tpu_torch.core import sampling
-from potato_tpu_torch.core.types import HitBatch
+from potato_tpu_torch.core.types import HitBatch, device_constant
 from potato_tpu_torch.ops.texture import CHECKER_DEPTH, sample_texture
 from potato_tpu_torch.scene import description as d
 
@@ -76,8 +76,7 @@ def eval_emit(tables, kind, color, tex, ray_direction, hit: HitBatch,
                                                           dim=-1)
         t = (0.5 * (dir_y + 1.0))[..., None]
         horizon = torch.ones(3, dtype=color.dtype, device=color.device)
-        zenith = torch.tensor([0.5, 0.7, 1.0], dtype=color.dtype,
-                              device=color.device)
+        zenith = device_constant((0.5, 0.7, 1.0), color.dtype, color.device)
         out = _pick(kind, d.EMIT_SKY_GRADIENT,
                     (1.0 - t) * horizon + t * zenith, out)
     if _used(ek, d.EMIT_SKY_SPHERE):

@@ -25,6 +25,7 @@ from potato_tpu_torch.core.types import (
     RAY_EPSILON,
     HitBatch,
     RayBatch,
+    device_constant,
     hits_at_infinity,
 )
 from potato_tpu_torch.ops.material import (
@@ -83,93 +84,152 @@ def init_state(rays: RayBatch, live=None) -> PathState:
     )
 
 
+class PassCounts:
+    """Program counters of the bounce loop, kept on the host (no sync):
+    `passes` the passes that steps of `make_bounce_step` ran, `replayed`
+    those a CUDA graph replay served, `captures` the CUDA graphs captured
+    (two a pass variant: render/bounce_graphs.py)."""
+
+    def __init__(self):
+        self.passes = 0
+        self.replayed = 0
+        self.captures = 0
+
+    def snapshot(self):
+        return self.passes, self.replayed, self.captures
+
+
+pass_counts = PassCounts()
+
+
 def make_bounce_step(tables, intersect_fn: Callable, seed, features=None,
                      ior_score: bool = False, aovs: bool = True):
     """Build the single-bounce transition `step(state, bounce, ray_ids)`.
 
     One call traces one path segment for every lane: intersect, shade,
     accumulate emission/background into radiance, draw the scatter
-    direction, and advance the ray. `bounce` is a python int.
+    direction, and advance the ray. `bounce` is a python int. The state
+    returned is the caller's: no later call writes to it.
+
+    Where the input allows it, the step replays each pass as CUDA graphs
+    around the flash kernel (render/bounce_graphs.py): the intersector is
+    the flash kernel's (`intersect_fn.flash_accel`), the state is on a
+    card, the seed is a python int and nothing asks for a gradient. Else,
+    and for a pass variant's first pass, it runs the pass op by op. Both
+    give the same bits.
     """
     packed = pack_materials(tables)   # loop-invariant
-    plus_z = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32,
-                          device=packed.device)
+    graphed = None
+    accel = getattr(intersect_fn, "flash_accel", None)
+    if accel is not None and accel.tri_flat.is_cuda \
+            and not isinstance(seed, torch.Tensor):
+        from potato_tpu_torch.render.bounce_graphs import GraphedStep
+
+        graphed = GraphedStep(tables, accel, seed, features=features,
+                              ior_score=ior_score, aovs=aovs)
+    tables_grad = any(t.requires_grad for t in tables
+                      if isinstance(t, torch.Tensor))
+
+    def wants_grad(state: PathState) -> bool:
+        return torch.is_grad_enabled() and (tables_grad or any(
+            t.requires_grad for t in tuple(state.rays) + state[1:3]))
 
     def bounce_step(state: PathState, bounce: int, ray_ids):
-        b = ray_ids.shape
-
+        pass_counts.passes += 1
+        if graphed is not None and state.radiance.is_cuda \
+                and not wants_grad(state):
+            out = graphed(state, bounce, ray_ids)
+            if out is not None:
+                return out
         hit: HitBatch = intersect_fn(tables, state.rays)
-
-        # Sanitize miss lanes before shading: their BIG-t positions (~3e38)
-        # overflow inside the compute-all-kinds texture/material dispatch
-        # (e.g. Perlin's corner dots hit inf - inf); every field of a miss
-        # lane is replaced by a harmless constant.
-        v1 = hit.valid
-        v3 = v1[..., None]
-        hit = hit._replace(
-            position=torch.where(v3, hit.position,
-                                 torch.zeros_like(hit.position)),
-            normal=torch.where(v3, hit.normal, plus_z),
-            uv=torch.where(v3, hit.uv, torch.zeros_like(hit.uv)),
-            t=torch.where(v1, hit.t, torch.ones_like(hit.t)),
-        )
-
-        # per-bounce scatter uniforms, keyed (seed, bounce stream, ray id).
-        # Two threefry blocks per bounce: (u1, u2) from SCATTER_A and
-        # (u3, u4) from SCATTER_B; the dielectric Bernoulli draw rides
-        # SCATTER_B's second word.
-        u1, u2 = prng.uniform2(
-            seed, prng.bounce_salt(bounce, prng.STREAM_SCATTER_A), ray_ids)
-        u3, u4 = prng.uniform2(
-            seed, prng.bounce_salt(bounce, prng.STREAM_SCATTER_B), ray_ids)
-
-        mat = eval_material(tables, hit.material, state.rays.direction, hit,
-                            u1, u2, u3, u4, features=features,
-                            ior_score=ior_score, packed=packed)
-
-        hit_inf = hits_at_infinity(state.rays.direction)
-        bg = eval_emit(tables, tables.bg_kind.expand(b),
-                       tables.bg_color.expand(b + (3,)),
-                       tables.bg_tex.expand(b),
-                       state.rays.direction, hit_inf, features=features)
-
-        contrib = torch.where(v3, mat.emit, bg)
-        live = state.active[..., None].to(torch.float32)
-        radiance = state.radiance + state.throughput * contrib * live
-
-        # AOVs from the first segment only
-        if aovs and bounce == 0:
-            aov_normal = torch.where(v3, hit.normal,
-                                     torch.zeros_like(hit.normal))
-            aov_hit = hit.valid
-        else:
-            aov_normal = state.aov_normal
-            aov_hit = state.aov_hit
-
-        throughput = torch.where(
-            (state.active & hit.valid)[..., None],
-            state.throughput * mat.absorb, state.throughput)
-        active = state.active & hit.valid & mat.scatter.valid
-
-        # Retired lanes keep flowing through the loop with an inert ray
-        # from the origin, marked dead via t_max = -1 < t_min: the flash
-        # intersector's per-block culling then skips them entirely (a block
-        # of only dead lanes does no primitive work), and no BIG-t position
-        # reaches the next bounce's arithmetic.
-        t_max = state.rays.t_max
-        next_rays = RayBatch(
-            origin=torch.where(active[..., None], hit.position,
-                               torch.zeros_like(hit.position)),
-            direction=mat.scatter.direction,
-            t_min=torch.full_like(t_max, RAY_EPSILON),
-            t_max=torch.where(active, torch.full_like(t_max, BIG),
-                              torch.full_like(t_max, -1.0)),
-        )
-        segments = state.segments + state.active.sum()
-        return PathState(next_rays, radiance, throughput, active,
-                         aov_normal, aov_hit, segments)
+        return advance(tables, packed, state, hit, seed, bounce, ray_ids,
+                       features=features, ior_score=ior_score,
+                       aov_now=aovs and bounce == 0)
 
     return bounce_step
+
+
+def advance(tables, packed, state: PathState, hit: HitBatch, seed, bounce,
+            ray_ids, features=None, ior_score: bool = False,
+            aov_now: bool = False) -> PathState:
+    """The rest of a pass once the intersector has answered: shade,
+    accumulate emission/background into radiance, draw the scatter
+    direction, advance the ray. `seed` is what `prng.uniform2` takes (a
+    python int, a `prng.Key`, a tensor) and `bounce` a python int or an
+    int64 scalar tensor: a captured graph reads both from device buffers.
+    aov_now: this pass writes the first-hit AOVs."""
+    b = ray_ids.shape
+
+    # Sanitize miss lanes before shading: their BIG-t positions (~3e38)
+    # overflow inside the compute-all-kinds texture/material dispatch
+    # (e.g. Perlin's corner dots hit inf - inf); every field of a miss
+    # lane is replaced by a harmless constant.
+    v1 = hit.valid
+    v3 = v1[..., None]
+    plus_z = device_constant((0.0, 0.0, 1.0), torch.float32,
+                             hit.normal.device)
+    hit = hit._replace(
+        position=torch.where(v3, hit.position,
+                             torch.zeros_like(hit.position)),
+        normal=torch.where(v3, hit.normal, plus_z),
+        uv=torch.where(v3, hit.uv, torch.zeros_like(hit.uv)),
+        t=torch.where(v1, hit.t, torch.ones_like(hit.t)),
+    )
+
+    # per-bounce scatter uniforms, keyed (seed, bounce stream, ray id).
+    # Two threefry blocks per bounce: (u1, u2) from SCATTER_A and
+    # (u3, u4) from SCATTER_B; the dielectric Bernoulli draw rides
+    # SCATTER_B's second word.
+    u1, u2 = prng.uniform2(
+        seed, prng.bounce_salt(bounce, prng.STREAM_SCATTER_A), ray_ids)
+    u3, u4 = prng.uniform2(
+        seed, prng.bounce_salt(bounce, prng.STREAM_SCATTER_B), ray_ids)
+
+    mat = eval_material(tables, hit.material, state.rays.direction, hit,
+                        u1, u2, u3, u4, features=features,
+                        ior_score=ior_score, packed=packed)
+
+    hit_inf = hits_at_infinity(state.rays.direction)
+    bg = eval_emit(tables, tables.bg_kind.expand(b),
+                   tables.bg_color.expand(b + (3,)),
+                   tables.bg_tex.expand(b),
+                   state.rays.direction, hit_inf, features=features)
+
+    contrib = torch.where(v3, mat.emit, bg)
+    live = state.active[..., None].to(torch.float32)
+    radiance = state.radiance + state.throughput * contrib * live
+
+    # AOVs from the first segment only
+    if aov_now:
+        aov_normal = torch.where(v3, hit.normal,
+                                 torch.zeros_like(hit.normal))
+        aov_hit = hit.valid
+    else:
+        aov_normal = state.aov_normal
+        aov_hit = state.aov_hit
+
+    throughput = torch.where(
+        (state.active & hit.valid)[..., None],
+        state.throughput * mat.absorb, state.throughput)
+    active = state.active & hit.valid & mat.scatter.valid
+
+    # Retired lanes keep flowing through the loop with an inert ray
+    # from the origin, marked dead via t_max = -1 < t_min: the flash
+    # intersector's per-block culling then skips them entirely (a block
+    # of only dead lanes does no primitive work), and no BIG-t position
+    # reaches the next bounce's arithmetic.
+    t_max = state.rays.t_max
+    next_rays = RayBatch(
+        origin=torch.where(active[..., None], hit.position,
+                           torch.zeros_like(hit.position)),
+        direction=mat.scatter.direction,
+        t_min=torch.full_like(t_max, RAY_EPSILON),
+        t_max=torch.where(active, torch.full_like(t_max, BIG),
+                          torch.full_like(t_max, -1.0)),
+    )
+    segments = state.segments + state.active.sum()
+    return PathState(next_rays, radiance, throughput, active,
+                     aov_normal, aov_hit, segments)
 
 
 def trace_paths(tables, intersect_fn: Callable, rays: RayBatch, ray_ids,

@@ -67,7 +67,12 @@ def make_intersect_fn(scene: CompiledScene, force_plain: bool = False):
     cluster or (no accel) brute force.
 
     force_plain runs the flash kernel's plain PyTorch version whatever the
-    device; it exists for comparisons (tests and chip_smoke.py)."""
+    device; it exists for comparisons (tests and chip_smoke.py).
+
+    The flash entry point carries `flash_accel`, the accelerator whose
+    kernel it launches (None under force_plain): the bounce step replays
+    its passes as CUDA graphs around that kernel (render/bounce_graphs.py).
+    """
     from potato_tpu_torch.ops.dense import DenseAccel, intersect_dense
     from potato_tpu_torch.ops.flash import FlashAccel, intersect_flash
     from potato_tpu_torch.ops.traverse import intersect_clustered
@@ -75,8 +80,11 @@ def make_intersect_fn(scene: CompiledScene, force_plain: bool = False):
 
     accel = scene.accel
     if isinstance(accel, FlashAccel):
-        return lambda tables, rays: intersect_flash(
-            accel, tables, rays, force_plain=force_plain)
+        def flash(tables, rays):
+            return intersect_flash(accel, tables, rays,
+                                   force_plain=force_plain)
+        flash.flash_accel = None if force_plain else accel
+        return flash
     if isinstance(accel, DenseAccel):
         return lambda tables, rays: intersect_dense(accel, tables, rays)
     if isinstance(accel, ClusterAccel):
@@ -316,7 +324,9 @@ def render(scene: CompiledScene, width: int, height: int, spp: int = 4,
     env path): JSONL events render_start, chunk (per-chunk path only),
     checkpoint and render_complete (with `lanes`, the lanes the bounce
     passes handed to the flash intersector; segments / lanes is the share
-    of them that carried a live path).
+    of them that carried a live path; `passes`, the bounce passes,
+    `replayed`, those a CUDA graph replay served, and `captures`, the CUDA
+    graphs captured: integrator.pass_counts).
 
     progress / checkpoint_path: dispatch chunk by chunk, with a progress
     line per chunk and, with a path, a running-image checkpoint saved
@@ -327,6 +337,7 @@ def render(scene: CompiledScene, width: int, height: int, spp: int = 4,
     chunk-granular results, so it always takes the chunked driver.
     """
     from potato_tpu_torch.ops.flash import intersect_flash
+    from potato_tpu_torch.render.integrator import pass_counts
     from potato_tpu_torch.utils.metrics import from_env_or
 
     own_metrics = metrics is None        # a POTATO_METRICS file is ours
@@ -334,6 +345,7 @@ def render(scene: CompiledScene, width: int, height: int, spp: int = 4,
     try:
         t_start = time.perf_counter()
         lanes_before = intersect_flash.lanes
+        passes_before = pass_counts.snapshot()
         driver, chunk_size, num_chunks = _resolve(
             scene, device, driver, width, height, spp, chunk_size)
         total = width * height * spp
@@ -362,8 +374,12 @@ def render(scene: CompiledScene, width: int, height: int, spp: int = 4,
             out = frame_fn(scene.tables, scene.camera, seed, starts)
         result = _to_host(out, width, height, spp, with_aovs)
         wall = time.perf_counter() - t_start
+        passes, replayed, captures = (
+            now - was for now, was in zip(pass_counts.snapshot(),
+                                          passes_before))
         metrics.log("render_complete", segments=result.segments,
                     lanes=intersect_flash.lanes - lanes_before,
+                    passes=passes, replayed=replayed, captures=captures,
                     seconds=round(wall, 4),
                     rays_per_s=round(result.segments / max(wall, 1e-9), 1))
         return result

@@ -31,6 +31,7 @@ from potato_tpu_torch.core.types import (
     BIG,
     RAY_EPSILON,
     RayBatch,
+    device_constant,
     hits_at_infinity,
     resolve_device,
 )
@@ -79,8 +80,7 @@ def build_pool_fn(scene: CompiledScene, width: int, height: int, spp: int,
     def pool_render(tables, camera, seed):
         dev = tables.s_center.device
         packed = pack_materials(tables)   # loop-invariant
-        plus_z = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32,
-                              device=dev)
+        plus_z = device_constant((0.0, 0.0, 1.0), torch.float32, dev)
         lane = torch.arange(pool, dtype=torch.int64, device=dev)
         f3 = dict(size=(pool, 3), dtype=torch.float32, device=dev)
 

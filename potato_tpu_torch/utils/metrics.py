@@ -6,7 +6,8 @@ being written), suitable for tailing into any metrics collector.
 Events emitted by the built-in surfaces:
 - renderer.render(): `render_start`, `chunk` (per-chunk path only),
   `checkpoint`, `render_complete` (segments, lanes handed to the flash
-  intersector, wall seconds, rays/s)
+  intersector, bounce passes, passes a CUDA graph replay served, graphs
+  captured, wall seconds, rays/s)
 - diff.optimize_textures(): `opt_step` (step, loss, seconds),
   `opt_checkpoint`
 - callers can add their own via `MetricsLogger.log(event, **fields)`.
