@@ -1,12 +1,16 @@
-"""Vectorized thin-lens camera ray generation.
+"""Ray order and vectorized thin-lens camera ray generation.
 
-One pass maps global ray ids to jittered pixel samples to world-space
-rays. All randomness is counter-based on the ray id, so any sub-batch of
-rays is reproducible in isolation.
+A frame's rays are traced in a traversal order: raw row r holds the ray
+id `traversal_ray_ids(r)`, tile by tile where the frame divides into
+tiles, else in scanline order. Every driver maps its rows to ray ids
+here. One pass then maps global ray ids to jittered pixel samples to
+world-space rays. All randomness is counter-based on the ray id, so any
+sub-batch of rays is reproducible in isolation.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from potato_tpu_torch.core import math as pmath
@@ -14,6 +18,65 @@ from potato_tpu_torch.core import rng as prng
 from potato_tpu_torch.core import sampling
 from potato_tpu_torch.core.types import BIG, RAY_EPSILON, RayBatch
 from potato_tpu_torch.scene.tables import CameraTables
+
+TILE_W, TILE_H = 16, 8   # pixels per ray-order tile (x spp rays)
+
+
+def _tiles_apply(width: int, height: int) -> bool:
+    return width % TILE_W == 0 and height % TILE_H == 0
+
+
+def tile_swizzle_ids(lin, width: int, spp: int):
+    """Permute the linear ray order so consecutive ids cover a compact
+    TILE_W x TILE_H pixel tile (x spp samples) instead of a 1-pixel-high
+    scanline strip.
+
+    The flash intersector builds one cluster list per block of consecutive
+    rays; a tile's list is the union over a compact screen patch instead of
+    a width-spanning strip. Pure permutation: each ray's RNG and pixel are
+    functions of the *physical* id, so the image is bit-identical to
+    scanline order after unpermuting.
+    """
+    lin = lin.to(torch.int64)
+    tile = TILE_W * TILE_H * spp
+    t_idx, within = lin // tile, lin % tile
+    pix, sample = within // spp, within % spp
+    tiles_x = width // TILE_W
+    px = (t_idx % tiles_x) * TILE_W + pix % TILE_W
+    py = (t_idx // tiles_x) * TILE_H + pix // TILE_W
+    return (py * width + px) * spp + sample
+
+
+def tile_unswizzle_perm(width: int, height: int, spp: int) -> np.ndarray:
+    """Host-side: physical ray id for each raw (traversal-order) row; the
+    same formula as `tile_swizzle_ids`, in numpy."""
+    lin = np.arange(width * height * spp, dtype=np.uint64)
+    tile = TILE_W * TILE_H * spp
+    t_idx, within = lin // tile, lin % tile
+    pix, sample = within // spp, within % spp
+    tiles_x = width // TILE_W
+    px = (t_idx % tiles_x) * TILE_W + pix % TILE_W
+    py = (t_idx // tiles_x) * TILE_H + pix // TILE_W
+    return ((py * width + px) * spp + sample).astype(np.int64)
+
+
+def traversal_ray_ids(raw, width: int, height: int, spp: int):
+    """(B,) int64 raw traversal rows -> their physical ray ids. A row at
+    or past the frame's end wraps around: its id only feeds the RNG of a
+    lane that is dead."""
+    lin = raw % max(width * height * spp, 1)
+    return tile_swizzle_ids(lin, width, spp) if _tiles_apply(width, height) \
+        else lin
+
+
+def chunk_ray_ids(start: int, chunk_size: int, width: int, height: int,
+                  spp: int, device):
+    """(ids, live) of the chunk starting at raw row `start`: the tail
+    chunk's lanes beyond the frame are born dead (live False), so they
+    trace zero segments and the counter counts each frame ray once."""
+    raw = torch.arange(chunk_size, dtype=torch.int64, device=device) + start
+    return (traversal_ray_ids(raw, width, height, spp),
+            raw < width * height * spp)
 
 
 def generate_rays(camera: CameraTables, width: int, height: int, spp: int,

@@ -36,11 +36,15 @@ from typing import NamedTuple
 
 import torch
 
-from potato_tpu_torch.core.types import BIG, RAY_EPSILON, RayBatch
-from potato_tpu_torch.render.camera import generate_rays
+from potato_tpu_torch.render.camera import (
+    chunk_ray_ids,
+    generate_rays,
+    traversal_ray_ids,
+)
 from potato_tpu_torch.render.integrator import (
     PathState,
     TraceResult,
+    bounce_rays,
     init_state,
     make_bounce_step,
 )
@@ -113,13 +117,10 @@ def compact_into(pool: Pool, state: PathState, raw, n_out):
 
 def unpack(pool: Pool, lo: int, hi: int, n_live: int) -> PathState:
     """Rows [lo, hi) of the pool as a bounce-loop state. Rows at or past
-    n_live are stale and come out dead (t_max < t_min)."""
+    n_live are stale and come out dead."""
     dev = pool.raw.device
     valid = torch.arange(lo, hi, device=dev) < n_live
-    zb = torch.zeros(hi - lo, dtype=torch.float32, device=dev)
-    rays = RayBatch(origin=pool.origin[lo:hi], direction=pool.direction[lo:hi],
-                    t_min=zb + RAY_EPSILON,
-                    t_max=torch.where(valid, zb + BIG, zb - 1.0))
+    rays = bounce_rays(pool.origin[lo:hi], pool.direction[lo:hi], valid)
     return PathState(rays=rays, radiance=pool.radiance[lo:hi],
                      throughput=pool.throughput[lo:hi], active=valid,
                      aov_normal=torch.zeros_like(pool.origin[lo:hi]),
@@ -127,27 +128,17 @@ def unpack(pool: Pool, lo: int, hi: int, n_live: int) -> PathState:
                      segments=torch.zeros((), dtype=torch.int64, device=dev))
 
 
-def build_compact_frame_fn(scene, width: int, height: int, spp: int,
-                           max_bounce: int, chunk_size: int,
-                           aovs: bool = False, jitter: bool = True,
-                           force_plain: bool = False):
+def build_compact_frame_fn(scene, intersect_fn, width: int, height: int,
+                           spp: int, max_bounce: int, chunk_size: int,
+                           aovs: bool = False, jitter: bool = True):
     """frame(tables, camera, seed, starts) -> TraceResult, the same stacked
     (num_chunks, C, ...) rows in traversal order as the chunked driver's;
-    `segments` carries the frame total in element 0.
+    `segments` carries the frame total in element 0. `intersect_fn` is
+    the scene's (renderer.make_intersect_fn).
 
     After each call `frame.passes` lists the passes each bounce took
     (bounce 0 first; the flush's passes last)."""
-    from potato_tpu_torch.render.renderer import (
-        chunk_ray_ids,
-        make_intersect_fn,
-        tile_swizzle_ids,
-        _tiles_apply,
-    )
-
-    intersect_fn = make_intersect_fn(scene, force_plain=force_plain)
-    total = width * height * spp
     C = chunk_size
-    tiles = _tiles_apply(width, height)
     features = scene.features
 
     def frame(tables, camera, seed, starts) -> TraceResult:
@@ -197,9 +188,7 @@ def build_compact_frame_fn(scene, width: int, height: int, spp: int,
             for j in range(num_passes):
                 st = unpack(pool, j * C, (j + 1) * C, n_live)
                 raw = pool.raw[j * C:(j + 1) * C]
-                # a stale row's id only feeds the RNG of a dead lane
-                lin = raw % total
-                ids = tile_swizzle_ids(lin, width, spp) if tiles else lin
+                ids = traversal_ray_ids(raw, width, height, spp)
                 valid = st.active
                 st = step_n(st, bounce, ids)
                 retired = valid & ~st.active

@@ -60,7 +60,7 @@ def init_state(rays: RayBatch, live=None) -> PathState:
 
     live: optional (B,) bool. Lanes born dead (padding in a fixed-shape
     chunk) trace nothing, contribute nothing, and are excluded from the
-    segments counter.
+    segments counter: their camera ray is made dead (t_max = -1).
     """
     b = rays.t_min.shape
     dev = rays.t_min.device
@@ -68,11 +68,7 @@ def init_state(rays: RayBatch, live=None) -> PathState:
     active0 = torch.ones(b, dtype=torch.bool, device=dev)
     if live is not None:
         active0 = active0 & live
-        # dead-born lanes carry an inert ray (t_max < t_min) so the
-        # intersector's dead-lane culling skips them entirely
-        rays = rays._replace(
-            t_max=torch.where(live, rays.t_max,
-                              torch.full_like(rays.t_max, -1.0)))
+        rays = rays._replace(t_max=torch.where(live, rays.t_max, -1.0))
     return PathState(
         rays=rays,
         radiance=zb3,
@@ -82,6 +78,23 @@ def init_state(rays: RayBatch, live=None) -> PathState:
         aov_hit=torch.zeros(b, dtype=torch.bool, device=dev),
         segments=torch.zeros((), dtype=torch.int64, device=dev),
     )
+
+
+def bounce_rays(origin, direction, alive) -> RayBatch:
+    """The rays of the next segment, each over [RAY_EPSILON, BIG].
+
+    The dead-lane rule (here and in `init_state`, nowhere else): a lane
+    not `alive` (retired, or stale) keeps flowing through the loop with
+    an inert ray, t_max = -1 < t_min, from the origin. The flash
+    intersector's per-block culling then skips it entirely (a block of
+    only dead lanes does no primitive work), and no BIG-t position
+    reaches the next bounce's arithmetic."""
+    f32 = dict(dtype=torch.float32, device=alive.device)
+    return RayBatch(
+        origin=torch.where(alive[..., None], origin, 0.0),
+        direction=direction,
+        t_min=torch.full(alive.shape, RAY_EPSILON, **f32),
+        t_max=torch.full(alive.shape, -1.0, **f32).masked_fill_(alive, BIG))
 
 
 class PassCounts:
@@ -151,13 +164,16 @@ def make_bounce_step(tables, intersect_fn: Callable, seed, features=None,
 
 def advance(tables, packed, state: PathState, hit: HitBatch, seed, bounce,
             ray_ids, features=None, ior_score: bool = False,
-            aov_now: bool = False) -> PathState:
+            aov_now=False) -> PathState:
     """The rest of a pass once the intersector has answered: shade,
     accumulate emission/background into radiance, draw the scatter
     direction, advance the ray. `seed` is what `prng.uniform2` takes (a
-    python int, a `prng.Key`, a tensor) and `bounce` a python int or an
-    int64 scalar tensor: a captured graph reads both from device buffers.
-    aov_now: this pass writes the first-hit AOVs."""
+    python int, a `prng.Key`, a tensor) and `bounce` what
+    `prng.bounce_salt` takes: a python int, an int64 scalar tensor (a
+    captured graph reads both from device buffers) or a (B,) int64 tensor,
+    each lane's own bounce (the pool driver, render/wavefront.py).
+    aov_now: a bool, whether this pass writes the first-hit AOVs, or a
+    (B,) bool mask of the lanes whose first-hit AOVs it writes."""
     b = ray_ids.shape
 
     # Sanitize miss lanes before shading: their BIG-t positions (~3e38)
@@ -200,7 +216,13 @@ def advance(tables, packed, state: PathState, hit: HitBatch, seed, bounce,
     radiance = state.radiance + state.throughput * contrib * live
 
     # AOVs from the first segment only
-    if aov_now:
+    if isinstance(aov_now, torch.Tensor):
+        aov_normal = torch.where(
+            aov_now[..., None],
+            torch.where(v3, hit.normal, torch.zeros_like(hit.normal)),
+            state.aov_normal)
+        aov_hit = torch.where(aov_now, hit.valid, state.aov_hit)
+    elif aov_now:
         aov_normal = torch.where(v3, hit.normal,
                                  torch.zeros_like(hit.normal))
         aov_hit = hit.valid
@@ -212,21 +234,7 @@ def advance(tables, packed, state: PathState, hit: HitBatch, seed, bounce,
         (state.active & hit.valid)[..., None],
         state.throughput * mat.absorb, state.throughput)
     active = state.active & hit.valid & mat.scatter.valid
-
-    # Retired lanes keep flowing through the loop with an inert ray
-    # from the origin, marked dead via t_max = -1 < t_min: the flash
-    # intersector's per-block culling then skips them entirely (a block
-    # of only dead lanes does no primitive work), and no BIG-t position
-    # reaches the next bounce's arithmetic.
-    t_max = state.rays.t_max
-    next_rays = RayBatch(
-        origin=torch.where(active[..., None], hit.position,
-                           torch.zeros_like(hit.position)),
-        direction=mat.scatter.direction,
-        t_min=torch.full_like(t_max, RAY_EPSILON),
-        t_max=torch.where(active, torch.full_like(t_max, BIG),
-                          torch.full_like(t_max, -1.0)),
-    )
+    next_rays = bounce_rays(hit.position, mat.scatter.direction, active)
     segments = state.segments + state.active.sum()
     return PathState(next_rays, radiance, throughput, active,
                      aov_normal, aov_hit, segments)

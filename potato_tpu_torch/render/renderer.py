@@ -23,7 +23,13 @@ import torch
 from potato_tpu_torch.core import color as pcolor
 from potato_tpu_torch.core.types import resolve_device
 from potato_tpu_torch.ops.intersect import intersect_brute_force
-from potato_tpu_torch.render.camera import generate_rays
+from potato_tpu_torch.render.camera import (
+    _tiles_apply,
+    chunk_ray_ids,
+    generate_rays,
+    tile_unswizzle_perm,
+)
+from potato_tpu_torch.render.compact import build_compact_frame_fn
 from potato_tpu_torch.render.integrator import TraceResult, trace_paths
 from potato_tpu_torch.scene.tables import CompiledScene
 
@@ -92,46 +98,6 @@ def make_intersect_fn(scene: CompiledScene, force_plain: bool = False):
     return intersect_brute_force
 
 
-TILE_W, TILE_H = 16, 8   # pixels per ray-order tile (x spp rays)
-
-
-def _tiles_apply(width: int, height: int) -> bool:
-    return width % TILE_W == 0 and height % TILE_H == 0
-
-
-def tile_swizzle_ids(lin, width: int, spp: int):
-    """Permute the linear ray order so consecutive ids cover a compact
-    TILE_W x TILE_H pixel tile (x spp samples) instead of a 1-pixel-high
-    scanline strip.
-
-    The flash intersector builds one cluster list per block of consecutive
-    rays; a tile's list is the union over a compact screen patch instead of
-    a width-spanning strip. Pure permutation: each ray's RNG and pixel are
-    functions of the *physical* id, so the image is bit-identical to
-    scanline order after unpermuting.
-    """
-    lin = lin.to(torch.int64)
-    tile = TILE_W * TILE_H * spp
-    t_idx, within = lin // tile, lin % tile
-    pix, sample = within // spp, within % spp
-    tiles_x = width // TILE_W
-    px = (t_idx % tiles_x) * TILE_W + pix % TILE_W
-    py = (t_idx // tiles_x) * TILE_H + pix // TILE_W
-    return (py * width + px) * spp + sample
-
-
-def tile_unswizzle_perm(width: int, height: int, spp: int) -> np.ndarray:
-    """Host-side: physical ray id for each raw (traversal-order) row."""
-    lin = np.arange(width * height * spp, dtype=np.uint64)
-    tile = TILE_W * TILE_H * spp
-    t_idx, within = lin // tile, lin % tile
-    pix, sample = within // spp, within % spp
-    tiles_x = width // TILE_W
-    px = (t_idx % tiles_x) * TILE_W + pix % TILE_W
-    py = (t_idx // tiles_x) * TILE_H + pix // TILE_W
-    return ((py * width + px) * spp + sample).astype(np.int64)
-
-
 def render_chunk(tables, camera, ray_ids, *, intersect_fn, width, height,
                  spp, max_bounce, seed, features=None, live=None,
                  ior_score: bool = False, jitter: bool = True,
@@ -143,19 +109,6 @@ def render_chunk(tables, camera, ray_ids, *, intersect_fn, width, height,
     return trace_paths(tables, intersect_fn, rays, ray_ids, max_bounce, seed,
                        features=features, live=live,
                        ior_score=ior_score, aovs=aovs)
-
-
-def chunk_ray_ids(start: int, chunk_size: int, width: int, height: int,
-                  spp: int, device):
-    """(ids, live) of the chunk starting at raw row `start`: the tail
-    chunk's lanes beyond the frame are born dead (live False), so they
-    trace zero segments and the counter counts each frame ray once."""
-    total = width * height * spp
-    raw = torch.arange(chunk_size, dtype=torch.int64, device=device) + start
-    lin = raw % total
-    ids = tile_swizzle_ids(lin, width, spp) if _tiles_apply(width, height) \
-        else lin
-    return ids, raw < total
 
 
 def _build_frame_fn(scene: CompiledScene, width: int, height: int, spp: int,
@@ -199,29 +152,40 @@ def check_scene_device(scene: CompiledScene, dev: torch.device) -> None:
             "was requested; build the scene with the same device")
 
 
-def _resolve(scene, device, driver, width, height, spp, chunk_size):
+def _frame_fn(driver, scene, width, height, spp, max_bounce, chunk_size, *,
+              jitter, aovs, force_plain):
+    """The frame function of `driver` (see compile_frame)."""
+    if driver == "compact":
+        return build_compact_frame_fn(
+            scene, make_intersect_fn(scene, force_plain=force_plain), width,
+            height, spp, max_bounce, chunk_size, aovs=aovs, jitter=jitter)
+    return _build_frame_fn(scene, width, height, spp, max_bounce, chunk_size,
+                           jitter=jitter, aovs=aovs, force_plain=force_plain)
+
+
+def _compile(scene, width, height, spp, max_bounce, chunk_size, driver,
+             device, *, jitter, aovs, force_plain, per_chunk=False):
+    """(driver, chunk_size, frame_fn, starts) of a frame: the driver and
+    the chunk size resolved (the per-chunk path takes the chunked driver),
+    the frame function and the chunks' first raw rows."""
     check_scene_device(scene, resolve_device(device))
     if driver is None:
         driver = default_driver(scene)
     if driver not in ("chunked", "compact"):
         raise ValueError(f"unknown driver {driver!r}")
+    if per_chunk:
+        driver = "chunked"
     total = width * height * spp
     if chunk_size is None:
         chunk_size = DEFAULT_CHUNK
     chunk_size = min(chunk_size, total)
-    return driver, chunk_size, (total + chunk_size - 1) // chunk_size
-
-
-def _frame_fn(driver, scene, width, height, spp, max_bounce, chunk_size, *,
-              jitter, aovs, force_plain):
-    """The frame function of `driver` (see compile_frame)."""
-    if driver == "compact":
-        from potato_tpu_torch.render.compact import build_compact_frame_fn
-        return build_compact_frame_fn(scene, width, height, spp, max_bounce,
-                                      chunk_size, aovs=aovs, jitter=jitter,
-                                      force_plain=force_plain)
-    return _build_frame_fn(scene, width, height, spp, max_bounce, chunk_size,
-                           jitter=jitter, aovs=aovs, force_plain=force_plain)
+    num_chunks = (total + chunk_size - 1) // chunk_size
+    frame_fn = _frame_fn(driver, scene, width, height, spp, max_bounce,
+                         chunk_size, jitter=jitter, aovs=aovs,
+                         force_plain=force_plain)
+    starts = torch.arange(num_chunks, dtype=torch.int64,
+                          device=scene.device) * chunk_size
+    return driver, chunk_size, frame_fn, starts
 
 
 def compile_frame(scene: CompiledScene, width: int, height: int, spp: int = 4,
@@ -238,13 +202,9 @@ def compile_frame(scene: CompiledScene, width: int, height: int, spp: int = 4,
     the frame's segments in element 0) or None = per-scene default
     (`default_driver`).
     """
-    driver, chunk_size, num_chunks = _resolve(
-        scene, device, driver, width, height, spp, chunk_size)
-    frame_fn = _frame_fn(driver, scene, width, height, spp, max_bounce,
-                         chunk_size, jitter=True, aovs=aovs,
-                         force_plain=force_plain)
-    starts = torch.arange(num_chunks, dtype=torch.int64,
-                          device=scene.device) * chunk_size
+    _, _, frame_fn, starts = _compile(
+        scene, width, height, spp, max_bounce, chunk_size, driver, device,
+        jitter=True, aovs=aovs, force_plain=force_plain)
     return frame_fn, starts
 
 
@@ -346,21 +306,16 @@ def render(scene: CompiledScene, width: int, height: int, spp: int = 4,
         t_start = time.perf_counter()
         lanes_before = intersect_flash.lanes
         passes_before = pass_counts.snapshot()
-        driver, chunk_size, num_chunks = _resolve(
-            scene, device, driver, width, height, spp, chunk_size)
         total = width * height * spp
         per_chunk = progress or checkpoint_path is not None
-        if per_chunk:
-            driver = "chunked"
+        driver, chunk_size, frame_fn, starts = _compile(
+            scene, width, height, spp, max_bounce, chunk_size, driver, device,
+            jitter=jitter, aovs=True, force_plain=force_plain,
+            per_chunk=per_chunk)
         metrics.log("render_start", width=width, height=height, spp=spp,
                     max_bounce=max_bounce, seed=seed, chunk_size=chunk_size,
-                    num_chunks=num_chunks, per_chunk=per_chunk,
+                    num_chunks=len(starts), per_chunk=per_chunk,
                     driver=driver)
-        frame_fn = _frame_fn(driver, scene, width, height, spp, max_bounce,
-                             chunk_size, jitter=jitter, aovs=True,
-                             force_plain=force_plain)
-        starts = torch.arange(num_chunks, dtype=torch.int64,
-                              device=scene.device) * chunk_size
         if per_chunk:
             # the checkpoint is valid only for an identical request OF THE
             # SAME SCENE: a digest of the tables and camera is part of it

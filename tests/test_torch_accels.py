@@ -302,6 +302,9 @@ def test_cli_renders_with_alternative_accels(accel, tmp_path, capsys):
     ("two_balls", "brute", 12, 12, 2, 512, 4),      # pool larger than frame
     # the kernel's sphere phase, long paths, a pool that is no power of two
     ("more_balls", "flash", 32, 16, 2, 300, 8),
+    # the kernel's triangle phase in scanline order (24 is no multiple of
+    # the tile), a black background and an area light that ends paths
+    ("cornell_box", "flash", 24, 20, 1, 256, 6),
 ])
 def test_render_pool_equals_chunked(name, accel, w, h, spp, pool, bounces):
     s = texamples.SCENES[name]().build(accel=accel, device="cpu")

@@ -12,7 +12,13 @@ numpy inputs, and one image of the JAX compact driver under the gate of
 tests/test_render_oracle.py::_compare (per-pixel 2e-3, at most
 max(1, 0.2 %) pixels off; the frameworks' transcendental functions differ
 in the last ulp, which a multi-bounce path can magnify), segments equal.
+
+The render modules below the renderer (compact, camera, integrator) never
+import it: the renderer imports them.
 """
+
+import ast
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -262,3 +268,33 @@ def test_compact_image_matches_jax_compact_driver():
     assert bad.sum() <= allowed, f"{bad.sum()} pixels off > {allowed}"
     assert got.segments == want.segments
     np.testing.assert_array_equal(got.coverage, want.coverage)
+
+
+# ------------------------------------------------------ import direction
+
+RENDERER = "potato_tpu_torch.render.renderer"
+
+
+def _imported_modules(tree, package):
+    """Every module an `import` or `from ... import` anywhere in the tree
+    names, with `from X import name` counted as X.name as well."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                parts = package.split(".")
+                parts = parts[:len(parts) + 1 - node.level]
+                base = ".".join(parts + ([base] if base else []))
+            yield base
+            yield from (f"{base}.{a.name}" for a in node.names)
+
+
+@pytest.mark.parametrize("module", ["compact", "camera", "integrator"])
+def test_modules_below_the_renderer_do_not_import_it(module):
+    path = pathlib.Path(tcompact.__file__).with_name(f"{module}.py")
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = set(_imported_modules(tree, "potato_tpu_torch.render"))
+    assert RENDERER not in names, f"render/{module}.py imports {RENDERER}"
+    assert names, "no import parsed"

@@ -24,7 +24,7 @@ from potato_tpu_torch.core import noise as tnoise
 from potato_tpu_torch.core import rng as trng
 from potato_tpu_torch.core import sampling as tsampling
 from potato_tpu_torch.core.stdrng import StdRng as TStdRng
-from potato_tpu_torch.render import renderer as trenderer
+from potato_tpu_torch.render import camera as tcamera
 
 ONES = 0xFFFFFFFF
 
@@ -164,9 +164,9 @@ def test_tile_swizzle_equals_jax_and_inverts(width, height, spp):
     total = width * height * spp
     lin = np.arange(total)
     j = jrenderer.tile_swizzle_ids(jnp.asarray(lin, jnp.uint32), width, spp)
-    t = trenderer.tile_swizzle_ids(torch.from_numpy(lin), width, spp)
+    t = tcamera.tile_swizzle_ids(torch.from_numpy(lin), width, spp)
     np.testing.assert_array_equal(t.numpy(), np.asarray(j).astype(np.int64))
-    perm = trenderer.tile_unswizzle_perm(width, height, spp)
+    perm = tcamera.tile_unswizzle_perm(width, height, spp)
     np.testing.assert_array_equal(
         perm, jrenderer.tile_unswizzle_perm(width, height, spp))
     np.testing.assert_array_equal(perm, t.numpy())

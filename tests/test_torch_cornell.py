@@ -20,6 +20,7 @@ from benchmark import compare, harness, port_scene
 from benchmark.reference import pathtracer
 from potato_tpu_torch import cli
 from potato_tpu_torch.ops import flash
+from potato_tpu_torch.render import camera as tcamera
 from potato_tpu_torch.render import renderer as trenderer
 from potato_tpu_torch.scene import description as d
 from potato_tpu_torch.scene import examples as texamples
@@ -107,7 +108,7 @@ def test_scene_is_36_lambert_triangles_a_light_and_no_sphere():
     assert trenderer.default_driver(scene) == "chunked"
     # 600 is no multiple of the 16-pixel tile: the book's frame takes
     # scanline ray order
-    assert not trenderer._tiles_apply(600, 600)
+    assert not tcamera._tiles_apply(600, 600)
 
 
 @pytest.mark.parametrize("k,name", enumerate(WALLS), ids=list(WALLS))

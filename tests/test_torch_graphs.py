@@ -33,7 +33,7 @@ from potato_tpu_torch.ops import flash
 from potato_tpu_torch.ops.material import eval_emit
 from potato_tpu_torch.render import bounce_graphs, integrator
 from potato_tpu_torch.render import renderer as trenderer
-from potato_tpu_torch.render.camera import generate_rays
+from potato_tpu_torch.render.camera import chunk_ray_ids, generate_rays
 from potato_tpu_torch.scene import description as d
 from potato_tpu_torch.scene import examples as texamples
 from potato_tpu_torch.utils.metrics import MetricsLogger
@@ -70,8 +70,7 @@ def _scene(name, device="cpu"):
 
 
 def _chunk(scene, width, height, spp, start, lanes, seed):
-    ids, live = trenderer.chunk_ray_ids(start, lanes, width, height, spp,
-                                        scene.device)
+    ids, live = chunk_ray_ids(start, lanes, width, height, spp, scene.device)
     rays = generate_rays(scene.camera, width, height, spp, ids, seed,
                          lens=scene.features.has_lens)
     return integrator.init_state(rays, live=live), ids

@@ -47,6 +47,7 @@ from potato_tpu_torch.io import native as tnative
 from potato_tpu_torch.io import tga
 from potato_tpu_torch.parallel import distributed, launch, shard
 from potato_tpu_torch.parallel.mesh import RayGroup, make_ray_group
+from potato_tpu_torch.render import camera as tcamera
 from potato_tpu_torch.render import renderer as trenderer
 from potato_tpu_torch.scene import examples as texamples
 
@@ -129,7 +130,7 @@ def _image(rows):
     """Traversal-order rows of RENDER's frame -> (H, W, 3) pixel means."""
     w, h, spp = RENDER["width"], RENDER["height"], RENDER["spp"]
     flat = np.empty_like(rows)
-    flat[trenderer.tile_unswizzle_perm(w, h, spp)] = rows
+    flat[tcamera.tile_unswizzle_perm(w, h, spp)] = rows
     return flat.reshape(h, w, spp, 3).mean(axis=2)
 
 
