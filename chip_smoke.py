@@ -57,7 +57,10 @@
    of each at the full frame, every gate of theirs enforced; the full
    reports go to chiprun_out/profilers/ and the traces to
    chiprun_out/traces/;
-10. prints one JSON line describing every kernel, then a verdict line.
+10. prints one JSON line describing every kernel (the flash kernel, and
+    the Threefry kernel of ops/rng_kernel.py, which phase 3 also holds to
+    its plain version bit for bit at 2^15 lanes and times, with its
+    launches counted phase by phase), then a verdict line.
 
 Any failed gate raises, so the run ends non-zero with no verdict line.
 The script imports only the port (torch, numpy) and chip_smoke_ranks.py:
@@ -81,10 +84,11 @@ import numpy as np
 import torch
 
 from potato_tpu_torch import cli
+from potato_tpu_torch.core import rng as prng
 from potato_tpu_torch.core.types import RayBatch
 from potato_tpu_torch.diff import optimize
 from potato_tpu_torch.io import obj, tga
-from potato_tpu_torch.ops import flash
+from potato_tpu_torch.ops import flash, rng_kernel
 from potato_tpu_torch.ops.dense import intersect_dense
 from potato_tpu_torch.ops.intersect import intersect_brute_force
 from potato_tpu_torch.ops.traverse import intersect_clustered
@@ -103,6 +107,7 @@ from chip_smoke_ranks import frame_ray_ids, measure_render, measure_train_step
 
 WIDTH, HEIGHT, SPP, BOUNCES = 800, 600, 4, 8
 SEED = 7
+SEED_64 = (1 << 62) + 12_345   # a seed whose key words are both nonzero
 CHUNK = renderer.DEFAULT_CHUNK
 
 # Published peaks of one H100 SXM: float32 outside the tensor cores, and
@@ -124,6 +129,17 @@ FIRST_FLOPS_PER_TRI_PAIR = 50
 FIRST_FLOPS_PER_SPH_PAIR = 30
 REPLACES = "potato_tpu/ops/flash.py:1031"
 KERNEL_SOURCE = "potato_tpu_torch/csrc/flash_intersect.cu"
+# The Threefry kernel: int32 operations of one lane's stream as the kernel
+# writes them (salt 2, counter words 2, 13 rounds of add, funnel shift and
+# xor 39, 4 key injections of 3, two floats of shift, or and subtract 6),
+# against 64 int32 results a clock on each of 132 SMs at 1.98 GHz (the
+# Hopper white paper's SM, the H100 SXM's boost clock); a lane reads its
+# 8-byte id and writes 8 bytes a stream.
+RNG_OPS_PER_STREAM = 61
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
+RNG_SOURCE = "potato_tpu_torch/csrc/threefry_uniforms.cu"
+RNG_STANDS_IN_FOR = ("potato_tpu/core/rng.py::threefry2x32 with "
+                     "_bits_to_unit_float, fused by XLA there")
 
 
 def say(*parts):
@@ -395,6 +411,82 @@ def phase_kernel_checks(scenes) -> float:
     return worst
 
 
+def phase_rng_kernel() -> dict:
+    """The Threefry kernel against its plain version at 2^15 lanes, bit for
+    bit: ids at and above 2^32, every form of key and bounce, 1 and 2
+    streams, 13 rounds and 20 (the published vectors); then its time a
+    launch beside its bound and the plain version's time, both at the
+    bounce pass's draw (2 streams). Returns the kernel's row."""
+    info = rng_kernel.load_kernel_library()
+    say(f"[rng] {RNG_SOURCE} -> {info['path']} in {info['seconds']:.1f} s")
+    for line in info["log"].splitlines():
+        if "registers" in line or "spill" in line or "error" in line:
+            say("[rng]", line.strip())
+    ptxas = ptxas_summary(info["log"])
+    gate("rng: ptxas reports no spills", ptxas["spill_bytes"],
+         ptxas["spill_bytes"] == 0, "0 bytes")
+    dev = torch.device("cuda")
+    n = CHUNK
+    i64 = dict(dtype=torch.int64, device=dev)
+    ids = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 1 << 34, n)).to(dev)
+    k0, k1 = prng.key_from_seed(SEED_64)
+    seeds = {"python int": SEED_64,
+             "device key": prng.Key(torch.tensor(k0, **i64),
+                                    torch.tensor(k1, **i64)),
+             "tensor seed": torch.tensor(k0, **i64)}
+    bounces = {"python int": 5, "device scalar": torch.tensor(5, **i64),
+               "per lane": torch.arange(n, **i64) % 8}
+    launches = rng_kernel.draw_counts.launches
+    checked = 0
+    for (sname, seed), (bname, bounce), streams in (
+            (a, b, c) for a in seeds.items() for b in bounces.items()
+            for c in ((2, 3), (1,))):
+        got = rng_kernel.uniforms(seed, bounce, streams, ids)
+        want = prng.uniforms_plain(seed, bounce, streams, ids)
+        gate(f"rng: kernel equals plain, {sname} seed, {bname} bounce, "
+             f"{len(streams)} stream(s)", f"{int((got != want).sum())} "
+             f"of {got.numel()} differ", torch.equal(got, want), "0")
+        checked += 1
+    for word, want in ((0, (0x6B200159, 0x99BA4EFE)),
+                       (0xFFFFFFFF, (0x1CB996FC, 0xBB002BE7))):
+        bounce, stream = (0, 0) if word == 0 else (0xFFFFFFFF >> 3, 7)
+        got = rng_kernel.threefry_uniforms_kernel(
+            prng.Key(word, word), bounce, (stream,),
+            torch.tensor([word], device=dev), 20)
+        bits = torch.tensor(want, dtype=torch.int64)[:, None]
+        gate(f"rng: 20 rounds give the published vector of {word:#x}",
+             got.flatten().tolist(),
+             torch.equal(got.cpu(), prng._bits_to_unit_float(bits)),
+             "equal")
+        checked += 1
+    took = rng_kernel.draw_counts.launches - launches
+    gate("rng: one launch a kernel draw", took, took == checked,
+         str(checked))
+
+    streams = (prng.STREAM_SCATTER_A, prng.STREAM_SCATTER_B)
+    key, bounce = seeds["device key"], bounces["device scalar"]
+    # as many launches as the host queues well inside device_ms's spin
+    ms = device_ms(lambda: rng_kernel.threefry_uniforms_kernel(
+        key, bounce, streams, ids), reps=200)
+    plain_ms = device_ms(lambda: prng.uniforms_plain(
+        key, bounce, streams, ids), reps=5)
+    ops_ms = n * len(streams) * RNG_OPS_PER_STREAM / PEAK_INT32_OPS * 1e3
+    bytes_ms = n * (8 + 8 * len(streams)) / PEAK_BYTES * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    say(f"[rng] {n} lanes, 2 streams, graph B's key and bounce: kernel "
+        f"{ms:.5f} ms a launch, plain {plain_ms:.5f} ms, bound "
+        f"{bound_ms:.6f} ms (operations {ops_ms:.6f}, bytes "
+        f"{bytes_ms:.6f}): {100 * bound_ms / ms:.2f} % of it")
+    return {"name": "threefry_uniforms", "route": "cuda",
+            "source": RNG_SOURCE, "replaces": None,
+            "stands_in_for": RNG_STANDS_IN_FOR, "lanes": n,
+            "streams": len(streams), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None, **ptxas}
+
+
 # ------------------------------------------------ phase 4: the main path
 
 def check_image(name, out):
@@ -648,9 +740,13 @@ def profile_chunk(name, scene):
 
 def phase_main_path(scenes):
     """Drives render / compile_frame at full width; returns per-scene
-    results and the launch count of the run."""
+    results and the flash and Threefry kernels' launch counts of its
+    frames."""
     results = {}
     flash.flash_intersect_kernel.launches = 0
+    rng_kernel.draw_counts.launches = 0
+    num_chunks = (WIDTH * HEIGHT * SPP + CHUNK - 1) // CHUNK
+    camera_draws = 0
     for name, scene in scenes.items():
         out = renderer.render(scene, WIDTH, HEIGHT, spp=SPP,
                               max_bounce=BOUNCES, seed=SEED,
@@ -662,16 +758,22 @@ def phase_main_path(scenes):
         per_frame = (flash.flash_intersect_kernel.launches - before) / len(ms)
         results[name].update(frame_ms=ms, segments=segs,
                              launches_per_frame=per_frame)
+        camera_draws += (1 + len(ms)) * num_chunks
         say(f"[main path] {name}: {WIDTH}x{HEIGHT}, {SPP} spp, {BOUNCES} "
             f"bounces, chunked driver, chunks of {CHUNK}: "
             f"ms/frame {[round(x, 2) for x in ms]}, "
             f"segments/s {[round(s / (m / 1e3)) for s, m in zip(segs, ms)]}, "
             f"segments/frame {segs}, kernel launches/frame {per_frame}")
     launches = flash.flash_intersect_kernel.launches
-    num_chunks = (WIDTH * HEIGHT * SPP + CHUNK - 1) // CHUNK
     gate("kernel launches on the main path", launches,
          launches >= 4 * num_chunks * len(scenes),
          f">= {4 * num_chunks * len(scenes)} (one per chunk per frame)")
+    # a graph replay counts the launch its capture made
+    rng_launches = rng_kernel.draw_counts.launches
+    want = launches + camera_draws
+    gate("rng: Threefry launches on the main path, one a chunk's camera "
+         "and one a bounce pass", rng_launches, rng_launches == want,
+         f"{want} ({camera_draws} camera, {launches} passes)")
 
     for name, scene in scenes.items():
         before = flash.flash_intersect_kernel.launches
@@ -711,7 +813,7 @@ def phase_main_path(scenes):
             kernel_mean_ms_in_frame=sums["kernel"] / calls,
             frame_visits=visits.sum(0).tolist(), rows=rows)
         small_frame_agreement(name, scene)
-    return results, launches
+    return results, launches, rng_launches
 
 
 # -------------------------------- phase 5: the default driver and the CLI
@@ -1596,17 +1698,22 @@ def main(argv=None) -> int:
         for n, s in scenes.items()))
 
     max_abs_err = phase_kernel_checks(scenes)
+    rng_row = phase_rng_kernel()
     if opts.kernel_only:
         say("kernel-only run: stopped after the kernel checks")
         return 0
 
-    results, launches = phase_main_path(scenes)
+    results, launches, rng_main = phase_main_path(scenes)
+    # the Threefry kernel's launches, each phase's on its own (the sharded
+    # ranks' draws are their own processes' and not counted here)
+    rng_by_path = {"main path (chunked, forced)": rng_main}
     if opts.profile:
         for name, scene in scenes.items():
             profile_chunk(name, scene)
 
     # the default driver of every scene and the CLI: counted on their own
     flash.flash_intersect_kernel.launches = 0
+    rng_kernel.draw_counts.launches = 0
     t0 = time.perf_counter()
     driver_rows, images = phase_default_driver(
         {"more_balls": scenes["more_balls"], "glass_standin": glass,
@@ -1614,6 +1721,8 @@ def main(argv=None) -> int:
     phase_cli(images["more_balls"])
     phase_checkpoint(scenes["more_balls"])
     launches_default = flash.flash_intersect_kernel.launches
+    rng_by_path["default driver of each scene, CLI, checkpoint"] = \
+        rng_kernel.draw_counts.launches
     compact_launches = sum(sum(r["compact"]["launches"])
                            for r in driver_rows.values())
     gate("kernel launches of the compact driver's timed frames",
@@ -1624,9 +1733,12 @@ def main(argv=None) -> int:
 
     # phase 6, the differentiable path: counted on its own
     t0 = time.perf_counter()
+    rng_kernel.draw_counts.launches = 0
     diff_rows, launches_diff = phase_differentiable(
         {**scenes, "three_balls": examples.three_balls().build(
             accel="flash", device=device)}, earth)
+    rng_by_path["differentiable path (optimize_textures, earth and "
+                "more_balls)"] = rng_kernel.draw_counts.launches
     say(f"[diff] phase in {time.perf_counter() - t0:.1f} s")
 
     # phase 7: dense, cluster and the pool; the pool's frames counted
@@ -1635,8 +1747,11 @@ def main(argv=None) -> int:
     full_images = {"more_balls": results["more_balls"]["chunked_out"],
                    "bunny_standin": results["bunny_standin"]["chunked_out"],
                    "glass_standin": images["glass_standin"]}
+    rng_kernel.draw_counts.launches = 0
     accel_rows, launches_pool = phase_pool_and_frames(scenes, glass, alt,
                                                       full_images)
+    rng_by_path["dense, cluster and the pool driver's frames"] = \
+        rng_kernel.draw_counts.launches
     gate("kernel launches of the pool's frames", launches_pool,
          launches_pool > 0, "> 0")
     say(f"[accels] phase in {time.perf_counter() - t0:.1f} s, "
@@ -1654,7 +1769,13 @@ def main(argv=None) -> int:
     # of their frames, this process's and the ranks'
     t0 = time.perf_counter()
     flash.flash_intersect_kernel.launches = 0
+    rng_kernel.draw_counts.launches = 0
     profiler_rows, launches_profilers = phase_profilers(device)
+    rng_by_path["profilers (tools/torch_*.py, quick forms), this "
+                "process"] = rng_kernel.draw_counts.launches
+    for path, took in rng_by_path.items():
+        if not path.startswith("profilers"):
+            gate(f"rng: Threefry launches, {path}", took, took > 0, "> 0")
     say(f"[profilers] phase in {time.perf_counter() - t0:.1f} s, "
         f"{launches_profilers} kernel launches in their frames")
 
@@ -1717,6 +1838,9 @@ def main(argv=None) -> int:
                 "bound_ms": [r["bound"]["ms"] for r in res["rows"]],
             } for name, res in results.items()},
     }]}
+    rng_row["launches"] = sum(rng_by_path.values())
+    rng_row["launches_by_path"] = rng_by_path
+    kernels["kernels"].append(rng_row)
     kernels["kernels"][0]["differentiable_path"] = diff_rows
     kernels["kernels"][0]["accelerators_and_pool"] = accel_rows
     kernels["kernels"][0]["scale_out"] = scale_rows

@@ -17,6 +17,10 @@ carry a cipher). Two round counts:
   BigCrush for Threefry-2x32 (Salmon et al., SC'11, table 2): Monte Carlo
   rendering needs statistical quality, not a cryptographic margin. The
   13-round stream is its own deterministic spec, pinned by fixture.
+
+A draw of float uniforms on a card is one launch of a hand-written
+kernel (ops/rng_kernel.py, csrc/threefry_uniforms.cu); what is here is the
+plain arithmetic it is held to, `uniforms_plain`, which CPU tensors take.
 """
 
 from __future__ import annotations
@@ -102,17 +106,22 @@ def key_from_seed(seed: int) -> Key:
     return Key(seed & _M32, (seed >> 32) & _M32)
 
 
+def _key_words(seed):
+    """(k0, k1) of a seed: a python int (64 bits used), a `Key`, or a
+    tensor (32 bits used, k1 = 0)."""
+    if isinstance(seed, Key):
+        return seed
+    if isinstance(seed, torch.Tensor):
+        return seed, 0
+    return key_from_seed(seed)
+
+
 def random_bits2(seed, salt, ids):
     """Two independent 32-bit words per id. `ids` is an integer tensor of
     global ray ids; `salt` a python int or an integer tensor that
     broadcasts against `ids`; `seed` a python int (64 bits used), a `Key`,
     or a tensor (32 bits used)."""
-    if isinstance(seed, Key):
-        k0, k1 = seed
-    elif isinstance(seed, torch.Tensor):
-        k0, k1 = seed, 0
-    else:
-        k0, k1 = key_from_seed(seed)
+    k0, k1 = _key_words(seed)
     return threefry2x32(k0, k1, ids, salt, rounds=RENDER_ROUNDS)
 
 
@@ -123,17 +132,38 @@ def _bits_to_unit_float(bits, dtype=torch.float32):
     return (f - 1.0).to(dtype)
 
 
+def _on_the_cpu(ids, name):
+    if isinstance(ids, torch.Tensor) and ids.device.type != "cpu":
+        raise ValueError(f"{name} draws on CPU tensors only; a draw on a "
+                         f"card goes through ops/rng_kernel.py::uniforms")
+
+
 def uniform2(seed, salt, ids, dtype=torch.float32):
-    """Two uniforms in [0,1) per id."""
+    """Two uniforms in [0,1) per id, of CPU tensors."""
+    _on_the_cpu(ids, "uniform2")
     b0, b1 = random_bits2(seed, salt, ids)
     return _bits_to_unit_float(b0, dtype), _bits_to_unit_float(b1, dtype)
 
 
 def uniform1(seed, salt, ids, dtype=torch.float32):
-    b0, _ = random_bits2(seed, salt, ids)
-    return _bits_to_unit_float(b0, dtype)
+    return uniform2(seed, salt, ids, dtype)[0]
 
 
 def bounce_salt(bounce, stream: int):
     """Salt for a draw of `stream` purpose at a given bounce."""
     return bounce * NUM_STREAMS + stream
+
+
+def uniforms_plain(seed, bounce, streams, ids, rounds: int = RENDER_ROUNDS):
+    """The float32 uniforms in [0, 1) of one draw, (2 * len(streams),
+    *ids.shape), op by op on any device: rows 2s and 2s + 1 are the two
+    words of `streams[s]` at salt `bounce_salt(bounce, streams[s])`.
+    `seed` is what `random_bits2` takes; `bounce` a python int, an int64
+    scalar tensor, or an int64 tensor of `ids`' shape (each lane's own
+    bounce). CPU tensors take it; the card's kernel is held to it."""
+    k0, k1 = _key_words(seed)
+    words = []
+    for stream in streams:
+        words.extend(threefry2x32(k0, k1, ids, bounce_salt(bounce, stream),
+                                  rounds=rounds))
+    return torch.stack([_bits_to_unit_float(w) for w in words])

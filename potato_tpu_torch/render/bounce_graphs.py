@@ -1,7 +1,7 @@
 """A bounce pass replayed as two CUDA graphs around the flash kernel.
 
-A pass of the bounce loop (integrator.make_bounce_step) is some 900 small
-eager ops over fixed shapes, and on a card the host's dispatch of them
+A pass of the bounce loop (integrator.make_bounce_step) is hundreds of
+small eager ops over fixed shapes, and on a card the host's dispatch of them
 (~10 us each) is most of a pass: the card idles ~90 % of a frame. Every op
 of a pass has a shape fixed by the lane count and no control flow that
 depends on the data, so a pass variant is captured once and replayed:
@@ -20,8 +20,9 @@ The host then issues some 40 calls a pass: the state copied into the
 graphs' input buffers, the two replays, the kernel, the copies out. The
 replays run the same kernels on the same data as the eager pass, so the
 bits are the same. Per-pass values live in device buffers the graphs read:
-the seed's two 32-bit key words and the bounce number (its salts are
-computed inside graph B), refilled by a launch, not a host copy.
+the seed's two 32-bit key words and the bounce number, refilled by a
+launch, not a host copy; graph B's Threefry kernel reads them through
+pointers (ops/rng_kernel.py).
 
 The graphs are kept per scene (keyed on its accelerator's triangle table,
 and dropped when that tensor is freed), at most MAX_VARIANTS variants a
@@ -42,7 +43,7 @@ import torch
 
 from potato_tpu_torch.core import rng as prng
 from potato_tpu_torch.core.types import RayBatch
-from potato_tpu_torch.ops import flash
+from potato_tpu_torch.ops import flash, rng_kernel
 from potato_tpu_torch.ops.material import pack_materials
 from potato_tpu_torch.render import integrator
 from potato_tpu_torch.render.integrator import PathState, advance
@@ -93,6 +94,7 @@ class _Variant:
         self.graphs = None
         self.inputs = None     # graph A's outputs: FlashInputs
         self.out = None        # graph B's outputs: PathState
+        self.draws = (0, 0, 0)  # rng_kernel.draw_counts a replay adds
 
     def valid_for(self, tables, accel) -> bool:
         tensors = _tensors(tables, accel)
@@ -113,11 +115,14 @@ class _Variant:
         """Capture both graphs. A graph destroyed while another is being
         captured invalidates that capture, and the graphs of a scene that
         lies in a reference cycle go only when the cycle collector runs:
-        so the collector runs now, and not during the captures."""
+        so the collector runs now, and not during the captures. The draws
+        and kernel launches the capture counted are made by each replay:
+        they move from the counter to `draws`."""
         a, b = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
         gc.collect()
         collecting = gc.isenabled()
         gc.disable()
+        drawn = rng_kernel.draw_counts.snapshot()
         try:
             with torch.cuda.graph(a, pool=pool):
                 self.inputs = self.body_a(tables, accel)
@@ -126,6 +131,9 @@ class _Variant:
         finally:
             if collecting:
                 gc.enable()
+            self.draws = tuple(now - was for now, was in
+                               zip(rng_kernel.draw_counts.snapshot(), drawn))
+            rng_kernel.draw_counts.add(*(-n for n in self.draws))
         self.graphs = (a, b)
         integrator.pass_counts.captures += 2
 
@@ -150,6 +158,7 @@ class _Variant:
         if graphed:
             self.graphs[1].replay()
             integrator.pass_counts.replayed += 1
+            rng_kernel.draw_counts.add(*self.draws)
         else:
             self.out = self.body_b(tables, accel, words, bounce)
         return _clone_state(self.out)

@@ -17,6 +17,7 @@ from potato_tpu_torch.core import math as pmath
 from potato_tpu_torch.core import rng as prng
 from potato_tpu_torch.core import sampling
 from potato_tpu_torch.core.types import BIG, RAY_EPSILON, RayBatch
+from potato_tpu_torch.ops import rng_kernel
 from potato_tpu_torch.scene.tables import CameraTables
 
 TILE_W, TILE_H = 16, 8   # pixels per ray-order tile (x spp rays)
@@ -85,7 +86,8 @@ def generate_rays(camera: CameraTables, width: int, height: int, spp: int,
     """ray_ids (B,) integer global ids in [0, width*height*spp).
 
     id -> pixel = id // spp (row-major i + j*width), sample = id % spp.
-    Jitter and lens draws are threefry streams keyed on the ray id.
+    Jitter and lens draws are threefry streams keyed on the ray id, drawn
+    together (one kernel launch on a card).
 
     jitter=False uses the regular grid uv = (i/width, j/height): every
     sample of a pixel identical (only the lens draw then differs).
@@ -98,8 +100,13 @@ def generate_rays(camera: CameraTables, width: int, height: int, spp: int,
     i = (pixel % width).to(torch.float32)
     j = (pixel // width).to(torch.float32)
 
+    # jitter and lens in one draw at bounce 0
+    streams = [s for s, on in ((prng.STREAM_PIXEL_JITTER, jitter),
+                               (prng.STREAM_LENS, lens)) if on]
+    drawn = (rng_kernel.uniforms(seed, 0, streams, ray_ids) if streams
+             else None)
     if jitter:
-        j1, j2 = prng.uniform2(seed, prng.STREAM_PIXEL_JITTER, ray_ids)
+        j1, j2 = drawn[0], drawn[1]
     else:
         j1 = j2 = torch.zeros_like(i)
     u = (i + j1) / float(width)
@@ -107,7 +114,7 @@ def generate_rays(camera: CameraTables, width: int, height: int, spp: int,
 
     zero = torch.zeros_like(i)
     if lens:
-        l1, l2 = prng.uniform2(seed, prng.STREAM_LENS, ray_ids)
+        l1, l2 = drawn[-2], drawn[-1]
         disk = sampling.unit_disk(l1, l2) * camera.lens_radius
         origin_local = torch.stack([disk[..., 0], disk[..., 1], zero], dim=-1)
     else:

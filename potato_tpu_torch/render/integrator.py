@@ -28,6 +28,7 @@ from potato_tpu_torch.core.types import (
     device_constant,
     hits_at_infinity,
 )
+from potato_tpu_torch.ops import rng_kernel
 from potato_tpu_torch.ops.material import (
     eval_emit,
     eval_material,
@@ -167,11 +168,11 @@ def advance(tables, packed, state: PathState, hit: HitBatch, seed, bounce,
             aov_now=False) -> PathState:
     """The rest of a pass once the intersector has answered: shade,
     accumulate emission/background into radiance, draw the scatter
-    direction, advance the ray. `seed` is what `prng.uniform2` takes (a
-    python int, a `prng.Key`, a tensor) and `bounce` what
-    `prng.bounce_salt` takes: a python int, an int64 scalar tensor (a
-    captured graph reads both from device buffers) or a (B,) int64 tensor,
-    each lane's own bounce (the pool driver, render/wavefront.py).
+    direction, advance the ray. `seed` is what `rng_kernel.uniforms` takes (a
+    python int, a `prng.Key`, a tensor) and `bounce` what it takes: a
+    python int, an int64 scalar tensor (a captured graph reads both from
+    device buffers) or a (B,) int64 tensor, each lane's own bounce (the
+    pool driver, render/wavefront.py).
     aov_now: a bool, whether this pass writes the first-hit AOVs, or a
     (B,) bool mask of the lanes whose first-hit AOVs it writes."""
     b = ray_ids.shape
@@ -193,13 +194,12 @@ def advance(tables, packed, state: PathState, hit: HitBatch, seed, bounce,
     )
 
     # per-bounce scatter uniforms, keyed (seed, bounce stream, ray id).
-    # Two threefry blocks per bounce: (u1, u2) from SCATTER_A and
-    # (u3, u4) from SCATTER_B; the dielectric Bernoulli draw rides
+    # Two threefry blocks per bounce, in one draw: (u1, u2) from SCATTER_A
+    # and (u3, u4) from SCATTER_B; the dielectric Bernoulli draw rides
     # SCATTER_B's second word.
-    u1, u2 = prng.uniform2(
-        seed, prng.bounce_salt(bounce, prng.STREAM_SCATTER_A), ray_ids)
-    u3, u4 = prng.uniform2(
-        seed, prng.bounce_salt(bounce, prng.STREAM_SCATTER_B), ray_ids)
+    u1, u2, u3, u4 = rng_kernel.uniforms(
+        seed, bounce, (prng.STREAM_SCATTER_A, prng.STREAM_SCATTER_B),
+        ray_ids)
 
     mat = eval_material(tables, hit.material, state.rays.direction, hit,
                         u1, u2, u3, u4, features=features,

@@ -22,6 +22,7 @@ import torch
 
 from potato_tpu_torch.core import color as pcolor
 from potato_tpu_torch.core.types import resolve_device
+from potato_tpu_torch.ops import rng_kernel
 from potato_tpu_torch.ops.intersect import intersect_brute_force
 from potato_tpu_torch.render.camera import (
     _tiles_apply,
@@ -286,7 +287,10 @@ def render(scene: CompiledScene, width: int, height: int, spp: int = 4,
     passes handed to the flash intersector; segments / lanes is the share
     of them that carried a live path; `passes`, the bounce passes,
     `replayed`, those a CUDA graph replay served, and `captures`, the CUDA
-    graphs captured: integrator.pass_counts).
+    graphs captured: integrator.pass_counts; `draws_kernel` and
+    `draws_plain`, the lanes x streams of the uniform draws that the
+    Threefry kernel and the plain version made: ops/rng_kernel.py::
+    draw_counts).
 
     progress / checkpoint_path: dispatch chunk by chunk, with a progress
     line per chunk and, with a path, a running-image checkpoint saved
@@ -306,6 +310,7 @@ def render(scene: CompiledScene, width: int, height: int, spp: int = 4,
         t_start = time.perf_counter()
         lanes_before = intersect_flash.lanes
         passes_before = pass_counts.snapshot()
+        draws_before = rng_kernel.draw_counts.snapshot()
         total = width * height * spp
         per_chunk = progress or checkpoint_path is not None
         driver, chunk_size, frame_fn, starts = _compile(
@@ -332,9 +337,13 @@ def render(scene: CompiledScene, width: int, height: int, spp: int = 4,
         passes, replayed, captures = (
             now - was for now, was in zip(pass_counts.snapshot(),
                                           passes_before))
+        draws_kernel, draws_plain, _ = (
+            now - was for now, was in zip(rng_kernel.draw_counts.snapshot(),
+                                          draws_before))
         metrics.log("render_complete", segments=result.segments,
                     lanes=intersect_flash.lanes - lanes_before,
                     passes=passes, replayed=replayed, captures=captures,
+                    draws_kernel=draws_kernel, draws_plain=draws_plain,
                     seconds=round(wall, 4),
                     rays_per_s=round(result.segments / max(wall, 1e-9), 1))
         return result

@@ -7,7 +7,8 @@ Events emitted by the built-in surfaces:
 - renderer.render(): `render_start`, `chunk` (per-chunk path only),
   `checkpoint`, `render_complete` (segments, lanes handed to the flash
   intersector, bounce passes, passes a CUDA graph replay served, graphs
-  captured, wall seconds, rays/s)
+  captured, uniform draws of the Threefry kernel and of the plain version,
+  wall seconds, rays/s)
 - diff.optimize_textures(): `opt_step` (step, loss, seconds),
   `opt_checkpoint`
 - callers can add their own via `MetricsLogger.log(event, **fields)`.

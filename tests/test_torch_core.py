@@ -24,6 +24,7 @@ from potato_tpu_torch.core import noise as tnoise
 from potato_tpu_torch.core import rng as trng
 from potato_tpu_torch.core import sampling as tsampling
 from potato_tpu_torch.core.stdrng import StdRng as TStdRng
+from potato_tpu_torch.ops import rng_kernel
 from potato_tpu_torch.render import camera as tcamera
 
 ONES = 0xFFFFFFFF
@@ -89,6 +90,28 @@ def test_uniform1_and_bounce_salt_equal_jax():
     j = jrng.uniform1(99, salt, jnp.asarray(ids, jnp.uint32))
     t = trng.uniform1(99, salt, torch.from_numpy(ids))
     np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
+@pytest.mark.parametrize("bounce", [0, 7, "per_lane"])
+def test_one_draw_of_two_streams_equals_jax_bit_for_bit(bounce):
+    """The draw of a bounce pass (SCATTER_A and SCATTER_B, as
+    integrator.advance makes it) on CPU tensors: the plain version, equal
+    to the reference's two uniform2 draws."""
+    ids = np.random.default_rng(11).integers(0, 1 << 22, 2048)
+    lane_bounce = (np.arange(2048) % 9 if bounce == "per_lane"
+                   else np.full(2048, bounce))
+    streams = (trng.STREAM_SCATTER_A, trng.STREAM_SCATTER_B)
+    got = rng_kernel.uniforms(
+        (5 << 32) | 77,
+        torch.from_numpy(lane_bounce) if bounce == "per_lane" else bounce,
+        streams, torch.from_numpy(ids))
+    want = []
+    for s in streams:
+        want.extend(jrng.uniform2(
+            (5 << 32) | 77,
+            jnp.asarray(jrng.bounce_salt(lane_bounce, s), jnp.uint32),
+            jnp.asarray(ids, jnp.uint32)))
+    np.testing.assert_array_equal(got.numpy(), np.stack(want))
 
 
 def test_random_bits_chunk_invariant():
