@@ -48,7 +48,7 @@
 //   Every pair gets its head: the edge values U, V, W, det and the sign test
 //   (triangles), or half_b, c, delta (spheres). The loop over a thread's
 //   rows does that and nothing else but note, one bit a row, which pairs can
-//   hit; it has no branch, so rows overlap. The divide, plane term and range
+//   hit; it has no branch, so rows overlap. The plane term, divide and range
 //   test (the root, both t and the range tests) are then run for the noted
 //   pairs only, each lane popping its own, lowest row first, until no lane
 //   of the warp has one left: a warp pays as many tails as its busiest lane
@@ -65,7 +65,9 @@
 //   __syncthreads of the far reduction is also what frees a buffer.
 //
 // Order and semantics: sphere phase first (only when has_sph), its result
-// bounding the triangle phases; packed child visits j < n_pk (sentinel
+// bounding the triangle phases: their far, and the range of their pair
+// tests (a triangle behind the ray's sphere hit is no hit, so a ray's
+// triangle result does not depend on which visits its group took); packed child visits j < n_pk (sentinel
 // child ids, == nsub, are skipped, never loaded); whole-parent tail visits
 // j < n_tail. A group whose block has empty queues writes t = BIG, slot = 0.
 //
@@ -80,14 +82,15 @@
 // every rounding is fixed by hand (__fmaf_rn, __fmul_rn, __fadd_rn, ...):
 // nothing is left for the compiler to contract, so every instantiation,
 // at every group, returns the same floats. The sphere test rounds as the
-// plain version does, product by product (sph_head says why); the
-// triangle test fuses its multiply-adds.
+// plain version does, product by product (sph_head says why), and so
+// does a triangle's t (tri_finish); the triangle's edge values fuse their
+// multiply-adds.
 // U, V and W are one function, edge_value, used for every edge of every
 // triangle and every ray. Triangles sharing an edge carry exactly negated
 // features for it and rounding is symmetric in sign, so their edge values
 // are exact negations: a ray crossing a shared edge is accepted by at least
 // one triangle, as a property of this source. What a ray derives once (m,
-// |d|^2, |o|^2, d.o) is rounded as the plain version rounds it. No
+// |d|^2) is rounded as the plain version rounds it. No
 // fast-math; divisions and square roots are IEEE.
 
 #include <cuda_runtime.h>
@@ -323,17 +326,28 @@ __device__ __forceinline__ bool tri_head(const float4& a, const float4& b,
   return same_sign && det != 0.0f;
 }
 
-// The rest, for a pair that can hit (det != 0): divide, plane term, range
-// test, running minimum. The slot column is read only when the pair wins.
-__device__ __forceinline__ void tri_finish(float det,
-                                           const float* __restrict__ row,
+// The rest, for a pair that can hit: t from the plane through corner a, in
+// a's frame, t = (a - o).n / d.n, then the range test and the running
+// minimum. The slot column is read only when the pair wins. Every product
+// and sum is rounded as the plain version rounds it. Not t = (o.n - a.n) /
+// det: U, V and W are each the size of |a x b|, so for a ray far from the
+// origin their sum keeps few of its bits, and a t divided by it put hit
+// points up to 5e-2 off the plane of a box face 600 out; a bounce ray from
+// there re-hit its own face from behind. A ray in the plane (d.n = 0) gets
+// an infinite or NaN t, which the range test refuses.
+__device__ __forceinline__ void tri_finish(const float* __restrict__ row,
                                            int seq, const Ray& r, Best& best) {
+  // columns: e = 16..19 (n.x = e.z, n.y = e.w), f = 20..23 (n.z, a)
   const float4 e = reinterpret_cast<const float4*>(row)[4];
   const float4 f = reinterpret_cast<const float4*>(row)[5];
-  const float inv_det = __fdiv_rn(1.0f, det);
-  const float o_n =
-      __fmaf_rn(r.oz, f.x, __fmaf_rn(r.ox, e.z, __fmul_rn(r.oy, e.w)));
-  const float tt = __fmul_rn(__fsub_rn(o_n, f.y), inv_det);
+  const float p_n = __fadd_rn(
+      __fadd_rn(__fmul_rn(__fsub_rn(f.y, r.ox), e.z),
+                __fmul_rn(__fsub_rn(f.z, r.oy), e.w)),
+      __fmul_rn(__fsub_rn(f.w, r.oz), f.x));
+  const float d_n = __fadd_rn(
+      __fadd_rn(__fmul_rn(r.dx, e.z), __fmul_rn(r.dy, e.w)),
+      __fmul_rn(r.dz, f.x));
+  const float tt = __fdiv_rn(p_n, d_n);
   const bool valid = tt >= r.t_min && tt <= r.t_max;
   const float key = valid ? tt : BIG;
   if (key < best.t) {
@@ -343,37 +357,40 @@ __device__ __forceinline__ void tri_finish(float det,
   }
 }
 
-// A noted pair, whole: its head again (for det), then the rest.
+// A noted pair, whole: its head again (for its sign test), then the rest.
 __device__ __forceinline__ void tri_pair(const float* __restrict__ row,
                                          int seq, const Ray& r, Best& best) {
   const float4* q = reinterpret_cast<const float4*>(row);
   float det;
   if (tri_head(q[0], q[1], q[2], q[3], q[4], r, det))
-    tri_finish(det, row, seq, r, best);
+    tri_finish(row, seq, r, best);
 }
 
 // ---- one (sphere row, ray) pair; half-b quadratic, two-root select
 
 // what a ray keeps for the sphere phase beside itself
 struct SphRay {
-  float a_coef, inv_a, o2, d_o;
+  float a_coef, inv_a;
 };
 
-// The part every pair pays: half_b, c, delta. True if the pair can hit
-// (the ray's line meets a real sphere). Every product and sum is rounded
-// as the plain version rounds it, with no fused multiply-add: a ray that
-// starts on a sphere (every bounce off one) has c = |o|^2 - 2 o.c + cc
-// cancel down to its rounding error, and that error alone decides whether
-// the near root lands just above t_min; fused, 2.4 % of the bounce-1 rays
-// of more_balls took another t than the plain version.
+// The part every pair pays: half_b, c, delta, in the sphere's own frame
+// (oc = o - c, half_b = d.oc, c = oc.oc - r^2; the row carries r^2). True
+// if the pair can hit (the ray's line meets a real sphere). Every product
+// and sum is rounded as the plain version rounds it, with no fused
+// multiply-add: a ray that starts on a sphere (every bounce off one) has c
+// down at its rounding error, and that error alone decides whether the
+// near root lands just above t_min, so kernel and plain version must
+// round it alike to agree. (The expanded form |o|^2 - 2 o.c + |c|^2 - r^2
+// cancels there: 30 % of the rays leaving the white spheres of
+// next_week_final re-hit their own sphere from inside.)
 __device__ __forceinline__ bool sph_head(const float4& s0, float ok_flag,
                                          const Ray& r, const SphRay& s,
                                          float& half_b, float& delta) {
-  const float cx = s0.x, cy = s0.y, cz = s0.z, cc = s0.w;
-  const float d_c = dot3(r.dx, r.dy, r.dz, cx, cy, cz);
-  const float o_c = dot3(r.ox, r.oy, r.oz, cx, cy, cz);
-  half_b = __fsub_rn(s.d_o, d_c);
-  const float c_coef = __fadd_rn(__fsub_rn(s.o2, __fmul_rn(2.0f, o_c)), cc);
+  const float ocx = __fsub_rn(r.ox, s0.x);
+  const float ocy = __fsub_rn(r.oy, s0.y);
+  const float ocz = __fsub_rn(r.oz, s0.z);
+  half_b = dot3(r.dx, r.dy, r.dz, ocx, ocy, ocz);
+  const float c_coef = __fsub_rn(dot3(ocx, ocy, ocz, ocx, ocy, ocz), s0.w);
   delta = __fsub_rn(__fmul_rn(half_b, half_b), __fmul_rn(s.a_coef, c_coef));
   return delta > 0.0f && ok_flag > 0.5f;
 }
@@ -597,8 +614,6 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) flash_intersect_kernel(
         s[k].a_coef = dot3(r[k].dx, r[k].dy, r[k].dz, r[k].dx, r[k].dy,
                            r[k].dz);
         s[k].inv_a = __fdiv_rn(1.0f, s[k].a_coef);
-        s[k].o2 = dot3(r[k].ox, r[k].oy, r[k].oz, r[k].ox, r[k].oy, r[k].oz);
-        s[k].d_o = dot3(r[k].dx, r[k].dy, r[k].dz, r[k].ox, r[k].oy, r[k].oz);
       }
       const int n = min(n_sph[blk], cs);
       const int* ids = sph_ids + static_cast<size_t>(blk) * cs;
@@ -635,6 +650,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) flash_intersect_kernel(
         sph_slot[first + seat.ray(k)] = s_best[k].slot;
       }
       cap[k] = fminf(cap[k], s_best[k].t);
+      r[k].t_max = cap[k];
     }
   }
 

@@ -62,12 +62,12 @@ TOP_P = 2      # packed-visit capacity per block, in parents' worth of
                # children; overflow goes to whole-parent tail visits
 SPH_BRUTE_MAX = 16   # sphere count at/below which spheres skip the kernel
 RAY_COLS = 8   # o(3) d(3) tmin tmax;  m = d x o is derived in the kernel
-# watertight edge-function features: gU eU gV eV gW eW (3 each) n(3) s_t(1)
-# = columns 0..21; 22, 23 pad; column 24 = global primitive slot (f32);
+# watertight edge-function features: gU eU gV eV gW eW (3 each) n(3)
+# corner a(3) = columns 0..23; column 24 = global primitive slot (f32);
 # padded to 32 columns (one 128-byte row)
 F_ROWS = 32
 SLOT_ROW = 24
-SPH_FEATURES = 8      # c(3) |c|^2-r^2(1) valid(1) pad(3)
+SPH_FEATURES = 8      # c(3) r^2(1) valid(1) pad(3)
 
 
 class FlashAccel(NamedTuple):
@@ -215,8 +215,8 @@ def build_flash_accel(tables, num_spheres: int, num_triangles: int,
     tf[9:12, :nt] = (pa_o - pc_o).T            # eV
     tf[12:15, :nt] = np.cross(pb_o, pa_o).T    # gW, edge (b, a): weights pc
     tf[15:18, :nt] = (pb_o - pa_o).T           # eW
-    tf[18:21, :nt] = n.T                       # plane normal (t numerator)
-    tf[21, :nt] = np.einsum("td,td->t", pa_o, n)   # s_t = a . n
+    tf[18:21, :nt] = n.T                       # plane normal (for t)
+    tf[21:24, :nt] = pa_o.T                    # corner a (for t)
     # column SLOT_ROW carries each row's global fine slot as f32, so a
     # visit reads the winning slot along with the features
     tf[SLOT_ROW, :] = np.arange(total, dtype=np.float64)
@@ -257,7 +257,10 @@ def build_flash_accel(tables, num_spheres: int, num_triangles: int,
     c_o, r_o = ck[sorder], rk[sorder]
     ns = sorder.shape[0]
     sf[0:3, :ns] = c_o.T
-    sf[3, :ns] = np.einsum("sd,sd->s", c_o, c_o) - r_o * r_o
+    # r^2 rounded as float32 r * r, as the dense test and the reference
+    # square the table's float32 radius
+    r32 = r_o.astype(np.float32)
+    sf[3, :ns] = r32 * r32
     sf[4, :ns] = 1.0  # validity flag (pad spheres invalid)
 
     # The triangle table carries each slot as an f32 column; slots above
@@ -624,16 +627,19 @@ def _sphere_keys(o, d, t_min, t_max, tile):
     (NB, rows, 1) -> key (NB, rows, R), BIG where there is no hit, and
     can_hit (NB, rows, R), the pairs whose test needs its root (the ray's
     line meets a real sphere). Half-b quadratic with two-root select, as
-    ops/intersect.py."""
+    ops/intersect.py, in the sphere's own frame: oc = o - c, half_b = d.oc,
+    c = oc.oc - r^2. (The expanded c = |o|^2 - 2 o.c + |c|^2 - r^2
+    cancels to its rounding error where a ray leaves a small sphere far
+    from the origin, and the near root then lands past t_min: a bounce
+    ray re-hits the sphere it left, from inside.)"""
     ox, oy, oz = o
     dx, dy, dz = d
-    cx, cy, cz, cc, ok = (tile[:, :, i:i + 1] for i in range(5))
+    cx, cy, cz, rr, ok = (tile[:, :, i:i + 1] for i in range(5))
     a_coef = dx * dx + dy * dy + dz * dz
     inv_a = 1.0 / a_coef
-    o2 = ox * ox + oy * oy + oz * oz
-    d_o = dx * ox + dy * oy + dz * oz
-    half_b = d_o - (dx * cx + dy * cy + dz * cz)
-    c_coef = o2 - 2.0 * (ox * cx + oy * cy + oz * cz) + cc
+    ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+    half_b = dx * ocx + dy * ocy + dz * ocz
+    c_coef = (ocx * ocx + ocy * ocy + ocz * ocz) - rr
     delta = half_b * half_b - a_coef * c_coef
     sph_ok = (delta > 0.0) & (ok > 0.5)
     sqrt_delta = pmath.sqrt(torch.where(sph_ok, delta,
@@ -659,7 +665,7 @@ def _triangle_keys(o, d, m, t_min, t_max, tile):
     ox, oy, oz = o
     dx, dy, dz = d
     mx, my, mz = m
-    f = [tile[:, :, i:i + 1] for i in range(22)]
+    f = [tile[:, :, i:i + 1] for i in range(24)]
     U = (dx * f[0] + dy * f[1] + dz * f[2]
          + mx * f[3] + my * f[4] + mz * f[5])
     V = (dx * f[6] + dy * f[7] + dz * f[8]
@@ -670,12 +676,16 @@ def _triangle_keys(o, d, m, t_min, t_max, tile):
     same_sign = (((U >= 0.0) & (V >= 0.0) & (Wf >= 0.0))
                  | ((U <= 0.0) & (V <= 0.0) & (Wf <= 0.0)))
     det_ok = det != 0.0
-    inv_det = det_ok.to(det.dtype) / torch.where(det_ok, det,
-                                                 torch.ones_like(det))
-    # t from the plane equation: t = (o.n - s_t) / det, since
-    # det = U+V+W = -d.n in real arithmetic
-    o_n = ox * f[18] + oy * f[19] + oz * f[20]
-    tt = (o_n - f[21]) * inv_det
+    # t from the plane through corner a, in a's frame: t = (a - o).n / d.n,
+    # every product and sum rounded apart, as the kernel rounds them. Not
+    # from det: U, V and W are each the size of |a x b|, so for a ray far
+    # from the origin their sum keeps few of its bits, and a t divided by
+    # it put hit points up to 5e-2 off the plane of a box face 600 out (a
+    # bounce ray from there then re-hit its face from behind). A ray in
+    # the plane (d.n = 0) gets an infinite or NaN t: no hit.
+    p_n = ((f[21] - ox) * f[18] + (f[22] - oy) * f[19]) + (f[23] - oz) * f[20]
+    d_n = (dx * f[18] + dy * f[19]) + dz * f[20]
+    tt = p_n / torch.where(det_ok, d_n, torch.ones_like(d_n))
     can_hit = det_ok & same_sign
     valid = can_hit & (tt >= t_min) & (tt <= t_max)
     return torch.where(valid, tt, tt.new_full((), BIG)), can_hit
@@ -776,6 +786,9 @@ def flash_intersect_plain(packed_rays, queues: BlockQueues, tri_flat,
             count[:, :, 0] += go
 
     # ---- triangle phases ----
+    # a triangle behind the ray's sphere hit is no hit: the sphere result
+    # bounds the pair tests' range as well as the groups' far
+    t_max = torch.minimum(t_max, sph_t[:, None, :])
     tri_t, tri_slot = fresh()
     nsub = (tri_flat.shape[0] - W) // W
     children = tri_flat.reshape(nsub + 1, W, F_ROWS)

@@ -25,7 +25,11 @@ import torch
 from potato_tpu_torch.core import math as pmath
 from potato_tpu_torch.core import sampling
 from potato_tpu_torch.core.types import HitBatch, device_constant
-from potato_tpu_torch.ops.texture import CHECKER_DEPTH, sample_texture
+from potato_tpu_torch.ops.texture import (
+    CHECKER_DEPTH,
+    counting,
+    sample_texture,
+)
 from potato_tpu_torch.scene import description as d
 
 
@@ -53,7 +57,7 @@ def _pick(kind, k, value, out):
 
 
 def eval_emit(tables, kind, color, tex, ray_direction, hit: HitBatch,
-              features=None, kinds=None):
+              features=None, kinds=None, reads=None):
     """Emission. `kind/color/tex` are the per-lane gathered emit fields
     (also used for the scene background with broadcast scalars and an
     at-infinity hit).
@@ -61,7 +65,9 @@ def eval_emit(tables, kind, color, tex, ray_direction, hit: HitBatch,
     `features` (SceneFeatures or None = all) skips variants the scene never
     selects; `kinds` overrides the emit-kind set (the material eval passes
     the material-only set so the background's kind does not pull, e.g., the
-    SkySphere atlas gather into every hit lane)."""
+    SkySphere atlas gather into every hit lane). `reads` (B,) bool marks
+    the lanes that use the emission (default: `hit.valid`), for the
+    texture counters."""
     ek = kinds if kinds is not None else (
         features.emit_kinds if features is not None else None)
     tk = features.texture_kinds if features is not None else None
@@ -80,8 +86,11 @@ def eval_emit(tables, kind, color, tex, ray_direction, hit: HitBatch,
         out = _pick(kind, d.EMIT_SKY_GRADIENT,
                     (1.0 - t) * horizon + t * zenith, out)
     if _used(ek, d.EMIT_SKY_SPHERE):
-        sphere_tex = sample_texture(tables, tex, hit.position, hit.uv,
-                                    depth=_checker_depth(features), kinds=tk)
+        reads = ((hit.valid if reads is None else reads)
+                 & (kind == d.EMIT_SKY_SPHERE)) if counting(tk) else None
+        sphere_tex = sample_texture(
+            tables, tex, hit.position, hit.uv, depth=_checker_depth(features),
+            kinds=tk, reads=reads)
         out = _pick(kind, d.EMIT_SKY_SPHERE, sphere_tex, out)
     return out
 
@@ -96,8 +105,11 @@ def eval_absorb(tables, kind, color, tex, hit: HitBatch, features=None):
     if _used(ak, d.ABSORB_ALBEDO):
         out = _pick(kind, d.ABSORB_ALBEDO, color, out)
     if _used(ak, d.ABSORB_ALBEDO_MAP):
-        mapped = sample_texture(tables, tex, hit.position, hit.uv,
-                                depth=_checker_depth(features), kinds=tk)
+        reads = hit.valid & (kind == d.ABSORB_ALBEDO_MAP) \
+            if counting(tk) else None
+        mapped = sample_texture(
+            tables, tex, hit.position, hit.uv, depth=_checker_depth(features),
+            kinds=tk, reads=reads)
         out = _pick(kind, d.ABSORB_ALBEDO_MAP, mapped, out)
     return out
 

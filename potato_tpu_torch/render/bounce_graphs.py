@@ -45,6 +45,7 @@ from potato_tpu_torch.core import rng as prng
 from potato_tpu_torch.core.types import RayBatch
 from potato_tpu_torch.ops import flash, rng_kernel
 from potato_tpu_torch.ops.material import pack_materials
+from potato_tpu_torch.ops.texture import texture_counts
 from potato_tpu_torch.render import integrator
 from potato_tpu_torch.render.integrator import PathState, advance
 
@@ -117,12 +118,15 @@ class _Variant:
         lies in a reference cycle go only when the cycle collector runs:
         so the collector runs now, and not during the captures. The draws
         and kernel launches the capture counted are made by each replay:
-        they move from the counter to `draws`."""
+        they move from the counter to `draws`. The texture hits'
+        accumulator is made before the capture, which would otherwise
+        capture its zeroing."""
         a, b = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
         gc.collect()
         collecting = gc.isenabled()
         gc.disable()
         drawn = rng_kernel.draw_counts.snapshot()
+        texture_counts.hits_on(self.ray_ids.device)
         try:
             with torch.cuda.graph(a, pool=pool):
                 self.inputs = self.body_a(tables, accel)

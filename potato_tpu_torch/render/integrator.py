@@ -34,6 +34,8 @@ from potato_tpu_torch.ops.material import (
     eval_material,
     pack_materials,
 )
+from potato_tpu_torch.ops.texture import counting
+from potato_tpu_torch.scene import description as d
 
 
 class TraceResult(NamedTuple):
@@ -206,10 +208,15 @@ def advance(tables, packed, state: PathState, hit: HitBatch, seed, bounce,
                         ior_score=ior_score, packed=packed)
 
     hit_inf = hits_at_infinity(state.rays.direction)
+    # the live lanes that missed read the background (texture counters)
+    bg_reads = ~v1 & state.active if features is None \
+        or (d.EMIT_SKY_SPHERE in features.emit_kinds
+            and counting(features.texture_kinds)) else None
     bg = eval_emit(tables, tables.bg_kind.expand(b),
                    tables.bg_color.expand(b + (3,)),
                    tables.bg_tex.expand(b),
-                   state.rays.direction, hit_inf, features=features)
+                   state.rays.direction, hit_inf, features=features,
+                   reads=bg_reads)
 
     contrib = torch.where(v3, mat.emit, bg)
     live = state.active[..., None].to(torch.float32)

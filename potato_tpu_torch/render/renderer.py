@@ -290,7 +290,10 @@ def render(scene: CompiledScene, width: int, height: int, spp: int = 4,
     graphs captured: integrator.pass_counts; `draws_kernel` and
     `draws_plain`, the lanes x streams of the uniform draws that the
     Threefry kernel and the plain version made: ops/rng_kernel.py::
-    draw_counts).
+    draw_counts; `texture_hits`, the lanes whose material read the Perlin,
+    value-noise or image sampler: ops/texture.py::texture_counts, read
+    from the device once the frame is on the host, where the scene has
+    such a sampler).
 
     progress / checkpoint_path: dispatch chunk by chunk, with a progress
     line per chunk and, with a path, a running-image checkpoint saved
@@ -301,6 +304,11 @@ def render(scene: CompiledScene, width: int, height: int, spp: int = 4,
     chunk-granular results, so it always takes the chunked driver.
     """
     from potato_tpu_torch.ops.flash import intersect_flash
+    from potato_tpu_torch.ops.texture import (
+        COUNTED_NAMES,
+        counting,
+        texture_counts,
+    )
     from potato_tpu_torch.render.integrator import pass_counts
     from potato_tpu_torch.utils.metrics import from_env_or
 
@@ -311,6 +319,8 @@ def render(scene: CompiledScene, width: int, height: int, spp: int = 4,
         lanes_before = intersect_flash.lanes
         passes_before = pass_counts.snapshot()
         draws_before = rng_kernel.draw_counts.snapshot()
+        hits_before = texture_counts.hits_clone() if metrics.enabled \
+            else None
         total = width * height * spp
         per_chunk = progress or checkpoint_path is not None
         driver, chunk_size, frame_fn, starts = _compile(
@@ -340,10 +350,16 @@ def render(scene: CompiledScene, width: int, height: int, spp: int = 4,
         draws_kernel, draws_plain, _ = (
             now - was for now, was in zip(rng_kernel.draw_counts.snapshot(),
                                           draws_before))
+        texture = {}
+        if metrics.enabled and counting(scene.features.texture_kinds):
+            # the hits' read is a sync: only here
+            texture = {"texture_hits": dict(zip(
+                COUNTED_NAMES, texture_counts.hits_since(hits_before)))}
         metrics.log("render_complete", segments=result.segments,
                     lanes=intersect_flash.lanes - lanes_before,
                     passes=passes, replayed=replayed, captures=captures,
                     draws_kernel=draws_kernel, draws_plain=draws_plain,
+                    **texture,
                     seconds=round(wall, 4),
                     rays_per_s=round(result.segments / max(wall, 1e-9), 1))
         return result

@@ -8,6 +8,7 @@ Events emitted by the built-in surfaces:
   `checkpoint`, `render_complete` (segments, lanes handed to the flash
   intersector, bounce passes, passes a CUDA graph replay served, graphs
   captured, uniform draws of the Threefry kernel and of the plain version,
+  the lanes whose material read the Perlin, value-noise or image sampler,
   wall seconds, rays/s)
 - diff.optimize_textures(): `opt_step` (step, loss, seconds),
   `opt_checkpoint`

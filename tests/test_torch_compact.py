@@ -89,6 +89,10 @@ def _both(scene, width, height, **kw):
     # thousands of spheres: the kernel's sphere phase and the dense split
     ("more_balls", "flash", 24, 16,
      dict(spp=2, max_bounce=8, seed=5, chunk_size=256)),
+    # both kernel phases in one launch (4 802 triangles, 990 kernel
+    # spheres), glass, and paths of up to 40 segments
+    ("next_week_final", "flash", 24, 24,
+     dict(spp=1, max_bounce=40, seed=2 ** 31 + 11, chunk_size=256)),
 ])
 def test_compact_equals_chunked(name, accel, width, height, kw):
     a, b = _both(_scene(name, accel), width, height, **kw)

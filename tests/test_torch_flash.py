@@ -226,9 +226,11 @@ def test_flash_matches_jax_flash_kernel_interpret_mode():
     """Same tables, same rays, the Pallas kernel in interpret mode against
     the port's plain version: valid and material >= 99.5 %, first-hit t to
     rtol 1e-4 plus atol 2e-5. The absolute term is the sphere quadratic's:
-    its c coefficient |o|^2 - 2 o.c + (|c|^2 - r^2) cancels at magnitudes
-    near 100 here, so the two frameworks' contraction choices move t by
-    about 1e-5 whatever its size (seen: 9.4e-6 on a hit at t = 0.018)."""
+    JAX's c coefficient |o|^2 - 2 o.c + (|c|^2 - r^2) cancels at magnitudes
+    near 100 here, so t moves by up to about 1e-5 whatever its size (seen:
+    9.4e-6 on a hit at t = 0.018). The port's test runs in the sphere's
+    frame (oc = o - c): beyond the rtol term t differs by at most 3.2e-6
+    here, against 7.6e-6 with the expanded form on both sides."""
     js, ts, jrays, trays = _scene("mixed")
     want = jflash.intersect_flash(js.accel, js.tables, jrays, interpret=True)
     got = tflash.intersect_flash(ts.accel, ts.tables, trays)

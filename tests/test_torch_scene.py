@@ -60,13 +60,40 @@ def _assert_records_equal(jrec, trec):
         np.testing.assert_array_equal(got, want, err_msg=f)
 
 
-def port_scene_from_jax(jscene, device="cpu"):
-    """The port's CompiledScene over a JAX-built scene's own arrays."""
-    def arrays(record):
-        return {f: np.asarray(getattr(record, f)) for f in record._fields
-                if not isinstance(getattr(record, f), int)}
+def _arrays(record):
+    return {f: np.asarray(getattr(record, f)) for f in record._fields
+            if not isinstance(getattr(record, f), int)}
 
-    accel = arrays(jscene.accel) if jscene.accel is not None else None
+
+def jax_accel_in_port_layout(jscene) -> dict:
+    """A JAX-built flash accelerator's arrays in the port's layout. The
+    differences: column 3 of the sphere rows, where the port's sphere test
+    runs in the sphere's own frame and reads r^2 (float32 r * r), JAX's
+    expanded form |c|^2 - r^2; and columns 21-23 of the triangle rows,
+    where the port's t runs in the frame of the triangle's corner a and
+    reads a, JAX's plane form a . n in column 21 (22 and 23 pad). Pad rows
+    carry 0 in both."""
+    accel = _arrays(jscene.accel)
+    feats = accel["sph_feats"].copy()
+    real = feats[:, 4] > 0.5
+    r = np.asarray(jscene.tables.s_radius, np.float32)[
+        accel["sph_perm"][real]]
+    feats[real, 3] = r * r
+    accel["sph_feats"] = feats
+    tri = accel["tri_flat"].copy()
+    nt = jscene.num_triangles
+    tri[:nt, 21:24] = np.asarray(jscene.tables.tri_pa, np.float32)[
+        accel["tri_perm"][:nt]]
+    accel["tri_flat"] = tri
+    return accel
+
+
+def port_scene_from_jax(jscene, device="cpu"):
+    """The port's CompiledScene over a JAX-built scene's own arrays, its
+    accelerator in the port's layout."""
+    arrays = _arrays
+    accel = jax_accel_in_port_layout(jscene) \
+        if jscene.accel is not None else None
     return ttables.scene_from_numpy(
         arrays(jscene.tables), arrays(jscene.camera), accel,
         ttables.SceneFeatures(*jscene.features),
@@ -85,7 +112,28 @@ def test_scene_tables_equal_jax_build(name):
 @pytest.mark.parametrize("name", SCENES)
 def test_flash_accel_equals_jax_build(name):
     js, ts = _pair(name)
-    _assert_records_equal(js.accel, ts.accel)
+    # every array equal to JAX's, the sphere rows once in the port's layout
+    port_layout = type(js.accel)(**{**js.accel._asdict(),
+                                    **jax_accel_in_port_layout(js)})
+    _assert_records_equal(port_layout, ts.accel)
+    # where the layouts differ, column 3 of a real sphere row: r^2 here,
+    # |c|^2 - r^2 in JAX's
+    feats = ts.accel.sph_feats.numpy()
+    real = feats[:, 4] > 0.5
+    c = feats[real, :3].astype(np.float64)
+    np.testing.assert_allclose(
+        np.asarray(js.accel.sph_feats)[real, 3],
+        np.einsum("sd,sd->s", c, c) - feats[real, 3], rtol=1e-5, atol=1e-5)
+    # and columns 21-23 of the triangle rows: corner a here, a . n and two
+    # pads in JAX's
+    tri, jtri = ts.accel.tri_flat.numpy(), np.asarray(js.accel.tri_flat)
+    nt = js.num_triangles
+    np.testing.assert_allclose(
+        jtri[:nt, 21], np.einsum("td,td->t", tri[:nt, 21:24].astype(
+            np.float64), tri[:nt, 18:21].astype(np.float64)),
+        rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(jtri[:, 22:24], 0.0)
+    np.testing.assert_array_equal(tri[nt:, 21:24], 0.0)
     assert (js.accel.num_triangles, js.accel.num_spheres) == \
         (ts.accel.num_triangles, ts.accel.num_spheres)
     # the kernel's wrapper takes these as they are
