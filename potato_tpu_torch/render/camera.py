@@ -50,7 +50,8 @@ def tile_swizzle_ids(lin, width: int, spp: int):
 
 def tile_unswizzle_perm(width: int, height: int, spp: int) -> np.ndarray:
     """Host-side: physical ray id for each raw (traversal-order) row; the
-    same formula as `tile_swizzle_ids`, in numpy."""
+    same formula as `tile_swizzle_ids`, in numpy. The plain version that
+    tests hold the renderer's unswizzle (a reshape, `_to_host`) to."""
     lin = np.arange(width * height * spp, dtype=np.uint64)
     tile = TILE_W * TILE_H * spp
     t_idx, within = lin // tile, lin % tile

@@ -25,10 +25,12 @@ from potato_tpu_torch.core.types import resolve_device
 from potato_tpu_torch.ops import rng_kernel
 from potato_tpu_torch.ops.intersect import intersect_brute_force
 from potato_tpu_torch.render.camera import (
+    TILE_H,
+    TILE_W,
     _tiles_apply,
     chunk_ray_ids,
     generate_rays,
-    tile_unswizzle_perm,
+    tile_unswizzle_perm,  # read from here by benchmark/tests
 )
 from potato_tpu_torch.render.compact import build_compact_frame_fn
 from potato_tpu_torch.render.integrator import TraceResult, trace_paths
@@ -372,25 +374,20 @@ def _to_host(out: TraceResult, width: int, height: int, spp: int,
              with_aovs: bool) -> RenderOutput:
     """Stacked traversal-order rows -> the spp-averaged host images."""
     total = width * height * spp
-    device = out.color.device
-    # rows come back in traversal order; under tile swizzle, scatter them
-    # to their physical (pixel, sample) slots before the spp average
     if _tiles_apply(width, height):
-        perm = torch.from_numpy(
-            tile_unswizzle_perm(width, height, spp)).to(device)
+        # tile order is a fixed reshape of the pixel grid (camera.
+        # tile_swizzle_ids): average each pixel's samples, then put the
+        # in-tile row axis before the tile-column axis, on the rows' device
+        grid = (height // TILE_H, width // TILE_W, TILE_H, TILE_W, spp)
 
-        def unswizzle(rows):
-            flat = torch.empty_like(rows)
-            flat[perm] = rows
-            return flat
+        def image(rows, channels):
+            tiles = rows[:total].reshape(grid + channels).mean(dim=4)
+            return tiles.transpose(1, 2).reshape((height, width) + channels) \
+                .cpu().numpy()
     else:
-        def unswizzle(rows):
-            return rows
-
-    def image(rows, channels):
-        shape = (height, width, spp) + channels
-        return unswizzle(rows[:total]).reshape(shape).mean(dim=2) \
-            .cpu().numpy()
+        def image(rows, channels):
+            shape = (height, width, spp) + channels
+            return rows[:total].reshape(shape).mean(dim=2).cpu().numpy()
 
     color = image(out.color.reshape(-1, 3), (3,))
     segments = int(out.segments.sum())

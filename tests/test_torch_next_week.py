@@ -35,6 +35,8 @@ from potato_tpu_torch.scene import description as d
 from potato_tpu_torch.scene import examples as texamples
 from potato_tpu_torch.utils.metrics import MetricsLogger
 
+from host_images import assert_host_images_bit_equal
+
 BENCH = harness.BENCH
 CELL = "next_week_final.book_final"
 CFG = harness.load_json(os.path.join(BENCH, "configs", "next_week_final.json"))
@@ -616,3 +618,13 @@ def test_kernel_sphere_phase_equals_the_plain_version(card, rays):
     assert int(tri_hit.sum()) > 0
     np.testing.assert_allclose(got[0][tri_hit].cpu().numpy(),
                                want[0][tri_hit].cpu().numpy(), rtol=1e-3)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("strided", [False, True])
+def test_host_images_on_the_card_equal_scatter_then_mean(card, strided):
+    """The cell's tiled 800x800, 4 spp frame: the spp mean and the tile
+    transpose run on the card, bit-equal to the host permutation's scatter
+    and mean on the CPU; `strided` as the pool driver hands its rows over."""
+    assert_host_images_bit_equal(800, 800, 4, 1 << 15, card,
+                                 strided=strided)

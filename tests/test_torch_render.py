@@ -36,6 +36,7 @@ from potato_tpu_torch.render import renderer as trenderer
 from potato_tpu_torch.render.camera import generate_rays as tgenerate_rays
 from potato_tpu_torch.scene import examples as texamples
 
+from host_images import assert_host_images_bit_equal
 from test_torch_scene import port_scene_from_jax
 
 N = 4096
@@ -421,3 +422,53 @@ def test_compile_frame_runs_the_same_frame_on_the_device():
     assert int(out.segments.sum()) == ref.segments
     srgb = ref.srgb()
     assert srgb.shape == (8, 16, 4) and srgb.dtype == np.uint8
+
+
+# ------------------------------------------------ rows -> host images
+
+@pytest.mark.parametrize("width,height,spp,chunk", [
+    # tiled: the two benchmark frames (about a second each), small frames
+    (800, 600, 4, 1 << 15), (800, 800, 4, 1 << 15),
+    pytest.param(48, 16, 3, 1000, marks=pytest.mark.fast),
+    pytest.param(32, 24, 1, 100, marks=pytest.mark.fast),
+    # scanline: 600 is not a multiple of the tile width
+    pytest.param(600, 600, 1, 1 << 15, marks=pytest.mark.fast),
+    pytest.param(20, 12, 2, 100, marks=pytest.mark.fast),
+])
+def test_host_images_equal_scatter_then_mean(width, height, spp, chunk):
+    """The tiled unswizzle is a reshape of the traversal rows: bit-equal
+    to scattering them through `tile_unswizzle_perm` and averaging, for
+    colour, normal and coverage, with padded rows past the frame."""
+    assert_host_images_bit_equal(width, height, spp, chunk, "cpu")
+
+
+@pytest.mark.parametrize("width,height,spp", [(48, 16, 3), (20, 12, 2)])
+def test_host_images_of_the_pool_buffer_equal_scatter_then_mean(width,
+                                                                height, spp):
+    """The pool driver hands over strided views of one (rows, 8) buffer."""
+    assert_host_images_bit_equal(width, height, spp, 64, "cpu",
+                                  strided=True)
+
+
+def test_a_tiled_frame_builds_no_host_permutation(monkeypatch):
+    """The main path never computes the numpy permutation: a tiled frame
+    renders with it raising. The renderer still exports the name."""
+    from potato_tpu_torch.render import camera, wavefront
+
+    assert trenderer.tile_unswizzle_perm is camera.tile_unswizzle_perm
+
+    def refuse(*args):
+        raise AssertionError("tile_unswizzle_perm on the main path")
+
+    ts = _port_scene("three_balls")
+    kw = dict(spp=2, max_bounce=2, seed=3, device="cpu")
+    want = trenderer.render(ts, 32, 16, **kw)
+    monkeypatch.setattr(camera, "tile_unswizzle_perm", refuse)
+    monkeypatch.setattr(trenderer, "tile_unswizzle_perm", refuse)
+    for got in (trenderer.render(ts, 32, 16, driver="chunked",
+                                 chunk_size=300, **kw),
+                trenderer.render(ts, 32, 16, driver="compact",
+                                 chunk_size=300, **kw),
+                wavefront.render_pool(ts, 32, 16, pool=300, **kw)):
+        np.testing.assert_array_equal(got.color, want.color)
+        np.testing.assert_array_equal(got.coverage, want.coverage)
